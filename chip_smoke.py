@@ -4,35 +4,63 @@ port builds, is right, and captions on the GPU.
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises, so the script exits
-non-zero without its last line):
+Phases, in the order they run (each prints one line; any failure raises, so
+the script exits non-zero without its last line):
 
   1. environment — the card (nvidia-smi name and power limit), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions, so float32
      means float32;
-  2. build — every CUDA kernel compiled from the sources in this checkout;
-  3. kernel vs plain — each hand-written kernel of the fused decode step held
-     to its plain PyTorch version at the flagship decode shapes (B·beam = 512,
-     d 512, 8 heads, dff 2048, 6 layers, Lpad 64, Lenc 16, vocab 2000):
-     float32 at the JAX tests' bar (atol 3e-4, ids equal), bfloat16 at
-     |err| <= 1e-2 + 1e-2·|plain| (one bf16 rounding of the result, 2^-8
-     relative); with each kernel's time beside its plain version's, the one
-     PyTorch call for the same function where there is one, and its bound;
-  4. whole step — ``fused_decode_step`` held to
+  2. build — every CUDA kernel compiled from the sources in this checkout
+     (one nvcc per source, started together), and the native image loader
+     (g++), which must report itself available;
+  3. decode kernels vs plain — each hand-written kernel of the fused decode
+     step held to its plain PyTorch version at the flagship decode shapes
+     (B·beam = 512, d 512, 8 heads, dff 2048, 6 layers, Lpad 64, Lenc 16,
+     vocab 2000): float32 at the JAX tests' bar (atol 3e-4, ids equal),
+     bfloat16 at |err| <= 1e-2 + 1e-2·|plain| (one bf16 rounding of the
+     result, 2^-8 relative); with each kernel's time beside its plain
+     version's, the one PyTorch call for the same function where there is
+     one, and its bound;
+  4. backbone kernel vs plain — ``fused_ir_block`` (``csrc/fused_backbone.cu``)
+     held to ``fused_ir_block_reference`` at every distinct block shape of a
+     flagship encode (512², batch 64; blocks 0, 1, 11, 13 and 16 among them),
+     float32 at atol 2e-4 + rtol 1e-3 and bfloat16 at 1e-2 + 1e-2·|plain|;
+     with its device time, the plain version's, the eager
+     ``_InvertedResidual`` block's (cuDNN convs, float32 BatchNorm) as a
+     yardstick, and the bound;
+  5. whole backbone — the fused backbone against the plain fused backbone on
+     8 images: float32 C3/C4 atol 2e-4, C5 2e-3, + rtol 1e-3; in bfloat16,
+     where roundings that the summation order flips cascade through 17
+     blocks, the kernel route may stray from the float32 result no further
+     than the plain route in bfloat16 does (relative L2, 25 % + 1e-3);
+  6. whole step — ``fused_decode_step`` held to
      ``fused_decode_step_reference`` over 8 state-synchronised steps (a beam
      reorder, finished rows, the kernel's chosen tokens fed to both); scores
      within atol 3e-4 (float32) / 0.1 (bfloat16), ids equal wherever the
      plain version's neighbouring candidates are further apart than that;
-  5. small input — ``Pipeline.predict_batch`` of a small float32 model on the
+  7. small input — ``Pipeline.predict_batch`` of a small float32 model on the
      card against the same model on the CPU (plain versions): equal tokens;
-  6. main path — ``Pipeline.predict_batch`` at full width (512² uint8 images,
+  8. main path — ``Pipeline.predict_batch`` at full width (512² uint8 images,
      mobilenet224_1.0, d_model 512, 6+6 layers, dff 2048, 8 heads, beam 8,
      max_seq_len 60, vocab 2000, bfloat16; seeded weights with BatchNorm
      statistics and biases perturbed) on 8 images and then 64 (512 decode
      rows), with ``to_caption``: a warm-up, five timed runs (median wall),
      five timed encodes and one run under the CUDA profiler each; launch
-     counters reset just before and read just after, each non-zero and equal
-     to the decode steps × its launches per step.
+     counters reset just before and read just after, each decode kernel's
+     non-zero and equal to the decode steps × its launches per step, the
+     backbone kernel's zero (this encode runs cuDNN);
+  9. fused main path — the same ``predict_batch`` at batch 64 with
+     ``fused_backbone=True`` (same weights): counters reset just before and
+     read just after, ``fused_ir_block`` at 17 × the encodes; then the fused
+     encode against the eager one in turns (eager, fused, fused, eager, five
+     times), one traced encode of each, and the whole ``predict_batch`` of
+     both routes in turns the same way;
+ 10. CLI — ``fpn_mt_image_captioning_torch.caption.main`` over a temporary
+     directory of 70 PNGs (512², written with zlib and struct) at
+     decode_batch 64 (one full batch, one padded): captions equal to
+     ``predict_batch`` on the same pixels;
+ 11. server — ``serve.make_server(port=0)`` in a thread, 8 concurrent POSTs of
+     those PNGs: each 200, each caption the CLI's for that file.
 
 Then the kernel table as one JSON line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -40,12 +68,19 @@ Then the kernel table as one JSON line, the card's name and power limit, and
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
@@ -57,6 +92,9 @@ B, BEAM, D, H, DFF, NL, LENC, V, MAX_LEN = 64, 8, 512, 8, 2048, 6, 16, 2000, 60
 BK = B * BEAM
 TPU_KERNEL = "fpn_mt_image_captioning_tpu/ops/fused_decoder.py:164"
 SOURCE = "fpn_mt_image_captioning_torch/csrc/fused_decoder.cu"
+BACKBONE_TPU_KERNEL = "fpn_mt_image_captioning_tpu/ops/fused_backbone.py:140"
+BACKBONE_SOURCE = "fpn_mt_image_captioning_torch/csrc/fused_backbone.cu"
+SIZE, N_BLOCKS, CLI_FILES, SERVER_REQUESTS = 512, 17, 70, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -74,16 +112,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+TIMING = {"bench_calls": 0, "profiler_windows_retried": 0}
+
+
 def bench(fn, iters: int = 20, reps: int = 5) -> tuple[float, float]:
     """``(device_ms, wall_ms)`` of one call of ``fn``. Device time is the sum
     of its kernels' durations as the CUDA profiler records them over
     ``iters`` calls, after warm-up. A Python loop of small launches is bound
     by the host, so CUDA events around the loop time the host: their median
-    over ``reps`` runs is the wall time per call. Raises if the profiler
-    records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    over ``reps`` runs is the wall time per call.
 
+    Every call of ``fn`` launches the same kernels, so a window whose kernel
+    count is not a multiple of ``iters`` lost some (CUPTI has been seen to
+    drop launches) and is profiled again, up to three times; then this
+    raises, so no wall time ever stands in for a device time."""
+    import torch
+
+    TIMING["bench_calls"] += 1
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -96,14 +141,36 @@ def bench(fn, iters: int = 20, reps: int = 5) -> tuple[float, float]:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    wall = statistics.median(times)
+    for attempt in range(3):
+        rows, _ = device_times(torch, lambda: [fn() for _ in range(iters)])
+        launches = sum(c for _, _, c in rows)
+        if launches and launches % iters == 0:
+            return sum(us for _, us, _ in rows) / iters / 1e3, wall
+        TIMING["profiler_windows_retried"] += 1
+    raise SmokeFailure(f"the CUDA profiler lost launches in three windows of {iters} calls")
+
+
+def device_times(torch, fn) -> tuple[list[tuple[str, float, int]], float]:
+    """``(kernel name, device µs, count)`` of every kernel and copy that
+    ``fn`` ran, and the wall ms of ``fn``, from one CUDA-profiler window. The
+    window runs ``fn`` twice and keeps the second run: the profiler's
+    warm-up step absorbs what tracing misses while it starts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if device_us <= 0:
-        raise SmokeFailure("the CUDA profiler recorded no device time")
-    return device_us / iters / 1e3, statistics.median(times)
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof.step()
+    return ([(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+             if e.self_device_time_total > 0], wall_ms)
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -355,20 +422,19 @@ def synthetic_tokenizer(Tokenizer, filters):
 
 
 def profile_run(torch, fn) -> dict:
-    """One traced run of ``fn``: wall time, the device's busy time (sum of
+    """One traced run of ``fn`` (after an untraced one in the same profiler
+    window): wall time, the device's busy time (sum of
     kernel and copy durations; kernels of one stream do not overlap) and
-    idle share, and the device time by kernel name, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    idle share, and the device time by kernel name, largest first. A window
+    that records nothing is run again, up to three times; then this
+    raises."""
+    for _ in range(3):
+        rows, wall_ms = device_times(torch, fn)
+        if rows:
+            break
+    else:
+        raise SmokeFailure("the CUDA profiler recorded no device time in three windows")
+    rows = sorted(((k, us / 1e3, c) for k, us, c in rows), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
                 top=[{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:12]])
@@ -380,11 +446,8 @@ def phase_main(fd, torch, dev, pipe):
 
     rng = np.random.default_rng(2024)
     size = pipe.config.image_input_size
-    per_step = {fd.decoder_linear: 6 * NL + 1, fd.decoder_add_layernorm: 3 * NL,
-                fd.decoder_self_attention: NL, fd.decoder_cross_attention: NL,
-                fd.decoder_logsoftmax_topk: 1}
     out = {}
-    fd.reset_launch_counts()
+    reset_all_counts()
     for batch in (8, 64):
         images = rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
         start = fd.decoder_logsoftmax_topk.launches
@@ -419,17 +482,382 @@ def phase_main(fd, torch, dev, pipe):
                           decode_s=wall - enc, decode_steps=n_steps, images_per_s=batch / wall,
                           caption0=captions[0][:60], trace=trace)
     steps = fd.decoder_logsoftmax_topk.launches
-    counts = {k.__name__: k.launches for k in fd.KERNELS}
-    for k, n in per_step.items():
-        if k.launches == 0 or k.launches != steps * n:
-            raise SmokeFailure(f"{k.__name__}: {k.launches} launches for {steps} steps "
-                               f"× {n} per step")
+    counts = read_all_counts()
+    check_decode_counts(fd, decode_per_step(fd), steps)
+    if counts["fused_ir_block"] != 0:
+        raise SmokeFailure("the eager encode launched the fused backbone kernel")
     traces = {b: out[b].pop("trace") for b in out}
     say("main_path", batch8=out[8], batch64=out[64], total_decode_steps=steps,
         launches=counts)
     for b, trace in traces.items():
         say(f"trace_batch{b}", **trace)
+    return counts, out[64]
+
+
+def decode_per_step(fd) -> dict:
+    return {fd.decoder_linear: 6 * NL + 1, fd.decoder_add_layernorm: 3 * NL,
+            fd.decoder_self_attention: NL, fd.decoder_cross_attention: NL,
+            fd.decoder_logsoftmax_topk: 1}
+
+
+def check_decode_counts(fd, per_step, steps) -> None:
+    for k, n in per_step.items():
+        if k.launches == 0 or k.launches != steps * n:
+            raise SmokeFailure(f"{k.__name__}: {k.launches} launches for {steps} steps "
+                               f"× {n} per step")
+
+
+def all_kernels():
+    from fpn_mt_image_captioning_torch.ops import fused_backbone, fused_decoder
+
+    return fused_decoder.KERNELS + fused_backbone.KERNELS
+
+
+def reset_all_counts() -> None:
+    from fpn_mt_image_captioning_torch.ops import fused_backbone, fused_decoder
+
+    fused_decoder.reset_launch_counts()
+    fused_backbone.reset_launch_counts()
+
+
+def read_all_counts() -> dict:
+    return {k.__name__: k.launches for k in all_kernels()}
+
+
+# ---------------------------------------------------------------------------
+# the fused backbone
+# ---------------------------------------------------------------------------
+def perturbed_backbone(torch, alpha: float = 1.0):
+    """A float32 MobileNetV2 on the CPU: seeded init, BatchNorm statistics,
+    scales and biases moved off their init (so the folding matters)."""
+    from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import (
+        BatchNorm32, MobileNetV2Backbone)
+    from fpn_mt_image_captioning_torch.weights import init_weights
+
+    net = MobileNetV2Backbone(alpha)
+    init_weights(net, torch.Generator().manual_seed(11))
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, BatchNorm32):
+                m.running_mean += 0.1 * torch.randn(m.running_mean.shape, generator=g)
+                m.running_var *= 0.5 + torch.rand(m.running_var.shape, generator=g)
+                m.weight += 0.1 * torch.randn(m.weight.shape, generator=g)
+                m.bias += 0.1 * torch.randn(m.bias.shape, generator=g)
+    return net.eval()
+
+
+def block_shapes(packed) -> list[dict]:
+    """The 17 blocks of one flagship encode (512², batch 64): index, input
+    extent, channels, stride, residual."""
+    out, hw = [], SIZE // 2
+    for i, (blk, meta) in enumerate(packed["blocks"]):
+        cexp, cout = blk["w_proj"].shape
+        cin = blk["w_exp"].shape[0] if "w_exp" in blk else cexp
+        out.append(dict(index=i, hw=hw, cin=cin, cexp=cexp, cout=cout, stride=meta["stride"],
+                        residual=meta["residual"], expand="w_exp" in blk))
+        hw //= meta["stride"]
+    return out
+
+
+def block_bound_parts(sh: dict, esz: int, dt_name: str) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one block: the input, the weights and the
+    output moved once each; expand over the input pixels, depthwise and
+    project over the output's."""
+    hw, ho = sh["hw"], sh["hw"] // sh["stride"]
+    cin, cexp, cout = sh["cin"], sh["cexp"], sh["cout"]
+    pix_in, pix_out = B * hw * hw, B * ho * ho
+    w_elems = (cin * cexp if sh["expand"] else 0) + cexp * cout
+    f32_elems = (cexp if sh["expand"] else 0) + 10 * cexp + cout
+    nbytes = (pix_in * cin + pix_out * cout + w_elems) * esz + f32_elems * 4
+    flops = 2 * ((pix_in * cin * cexp if sh["expand"] else 0) + 9 * pix_out * cexp
+                 + pix_out * cexp * cout)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dt_name]
+
+
+def phase_backbone_kernels(fb, torch, dev):
+    """fused_ir_block vs its plain version at every distinct block shape of
+    the flagship encode, float32 and bfloat16, timed beside the eager block."""
+    from fpn_mt_image_captioning_torch.decode.beam_search import cast_for_inference
+
+    net = perturbed_backbone(torch)
+    shapes = block_shapes(fb.pack_backbone_weights(net, torch.float32))
+    distinct = {}
+    for sh in shapes:   # blocks that repeat a shape are timed once, counted n times
+        key = (sh["hw"], sh["cin"], sh["cexp"], sh["cout"], sh["stride"], sh["residual"])
+        distinct.setdefault(key, []).append(sh["index"])
+    g = torch.Generator().manual_seed(31)
+    rows, totals = {}, {}
+    for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        f32 = dt == torch.float32
+        tol = dict(atol=2e-4, rtol=1e-3) if f32 else dict(atol=1e-2, rtol=1e-2)
+        packed = fb.packed_to(fb.pack_backbone_weights(net, dt), dev)
+        tot = dict(ms=0.0, plain_ms=0.0, eager_ms=0.0, bound_ms=0.0, bytes_bound_ms=0.0,
+                   bytes_bound_blocks_ms=0.0, max_abs_err=0.0)
+        for indices in distinct.values():
+            sh = shapes[indices[0]]
+            blk, meta = packed["blocks"][sh["index"]]
+            x = torch.randn(B, sh["hw"], sh["hw"], sh["cin"], generator=g).to(dev, dt)
+            kw = dict(stride=meta["stride"], residual=meta["residual"])
+            got = fb.fused_ir_block(x, blk, **kw)
+            torch.cuda.synchronize()
+            want = fb.fused_ir_block_reference(x, blk, **kw)
+            err = close(f"fused_ir_block[block {sh['index']},{dt_name}]", got, want, **tol)
+            del got, want
+            ms, _ = bench(lambda: fb.fused_ir_block(x, blk, **kw), iters=5, reps=2)
+            plain, _ = bench(lambda: fb.fused_ir_block_reference(x, blk, **kw), iters=3, reps=1)
+            eager_block = cast_for_inference(
+                copy.deepcopy(getattr(net, net._blocks[sh["index"]][0])), dt).to(dev)
+            xc = x.permute(0, 3, 1, 2).contiguous()
+            with torch.no_grad():
+                eager, _ = bench(lambda: eager_block(xc), iters=5, reps=2)
+            del eager_block, xc, x
+            t_bytes, t_ops = block_bound_parts(sh, 4 if f32 else 2, dt_name)
+            n = len(indices)
+            for k, v in (("ms", ms), ("plain_ms", plain), ("eager_ms", eager),
+                         ("bound_ms", max(t_bytes, t_ops))):
+                tot[k] += n * v
+            tot["bytes_bound_ms"] += n * t_bytes
+            if t_bytes >= t_ops:
+                tot["bytes_bound_blocks_ms"] += n * t_bytes
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            rows[f"{dt_name}_blocks_{'_'.join(map(str, indices))}"] = dict(
+                shape=f"{sh['hw']}² {sh['cin']}→{sh['cexp']}→{sh['cout']} s{sh['stride']}"
+                      f"{' +res' if sh['residual'] else ''}",
+                max_abs_err=err, ms=ms, plain_ms=plain, eager_ms=eager,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_bound_ms=t_bytes)
+        totals[dt_name] = tot
+    say("backbone_kernels", batch=B, size=SIZE, blocks=rows, per_encode=totals)
+    bf = totals["bfloat16"]
+    return dict(shape=f"the 17 blocks of one encode, batch {B}, {SIZE}², bf16 (sums over the "
+                      "17 launches; per-block rows in the backbone_kernels line)",
+                max_abs_err=bf["max_abs_err"], ms=bf["ms"], plain_ms=bf["plain_ms"],
+                eager_ms=bf["eager_ms"], library_ms=None,
+                bound=(bf["bound_ms"], "bytes" if bf["bytes_bound_blocks_ms"] >= 0.5 * bf["bound_ms"]
+                       else "operations"))
+
+
+def phase_backbone_whole(fb, torch, dev):
+    """The fused backbone vs the plain fused backbone on the card. float32:
+    every element within the bars. bfloat16: roundings that the summation
+    order flips cascade through 17 blocks, so the kernel is held to stray
+    from the float32 result no further than the plain version in bfloat16
+    does (relative L2, 25 % margin + 1e-3)."""
+    net = perturbed_backbone(torch)
+    g = torch.Generator().manual_seed(41)
+    images = (torch.rand(8, SIZE, SIZE, 3, generator=g) * 2 - 1).to(dev)
+    run = lambda dt, plain: fb.fused_mobilenet_backbone(
+        fb.packed_to(fb.pack_backbone_weights(net, dt), dev), images, plain=plain)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    got32 = run(torch.float32, False)
+    torch.cuda.synchronize()
+    want32 = run(torch.float32, True)
+    got16, want16 = run(torch.bfloat16, False), run(torch.bfloat16, True)
+    line = {}
+    for i, name in enumerate(("C3", "C4", "C5")):
+        err32 = close(f"fused backbone {name} float32", got32[i], want32[i],
+                      atol=2e-3 if name == "C5" else 2e-4, rtol=1e-3)
+        r = dict(float32_max_abs_err=err32, bf16_kernel_vs_plain=rel(got16[i], want16[i]),
+                 bf16_kernel_vs_f32=rel(got16[i], want32[i]),
+                 bf16_plain_vs_f32=rel(want16[i], want32[i]))
+        line[name] = r
+        if not (bool(got16[i].isfinite().all())
+                and r["bf16_kernel_vs_f32"] <= 1.25 * r["bf16_plain_vs_f32"] + 1e-3):
+            raise SmokeFailure(f"fused backbone {name} bfloat16: {r}")
+    say("backbone_whole", images=8, size=SIZE, shapes=[list(t.shape) for t in got16],
+        note="bf16 columns: relative L2 errors", **line)
+
+
+def make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **cfg_kw):
+    """The flagship pipeline with seeded weights whose BatchNorm statistics
+    and biases are perturbed (they init to 0/1), decoder (and fused backbone)
+    weights packed again after the perturbation."""
+    from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import BatchNorm32
+
+    cfg = Config(beam_search_n=BEAM, compute_dtype="bfloat16", decode_batch=B, **cfg_kw)
+    pipe = Pipeline(tokenizer, MAX_LEN, cfg, seed=0, device=dev)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(7)
+        for m in pipe.transformer.modules():
+            if isinstance(m, BatchNorm32):
+                m.running_mean += 0.1 * torch.randn(m.running_mean.shape, generator=g).to(dev)
+                m.running_var *= (0.5 + torch.rand(m.running_var.shape, generator=g)).to(dev)
+        for name, p in pipe.transformer.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("bias", "bq", "bo", "kv_bias"):
+                p += (0.1 * torch.randn(p.shape, generator=g)).to(dev, p.dtype)
+        pipe.packed = fd.pack_decoder_weights(pipe.transformer, pipe.dtype)
+        if pipe.backbone_packed is not None:   # folded from the bf16 weights here
+            pipe.backbone_packed = fb.packed_to(fb.pack_backbone_weights(
+                pipe.transformer.encoder.feature_extractor.backbone, pipe.dtype), dev)
+    return pipe
+
+
+def phase_fused_main(fd, fb, torch, pipe, eager, eager_out):
+    """predict_batch at batch 64 with the fused backbone; counters reset just
+    before and read just after. Then the fused encode against the eager one
+    (``eager``, the same weights) in turns — eager, fused, fused, eager, five
+    times — one traced encode of each, and both routes' ``predict_batch`` in
+    turns."""
+    import numpy as np
+
+    images = np.random.default_rng(2024).integers(0, 256, (B, SIZE, SIZE, 3), dtype=np.uint8)
+    reset_all_counts()
+    encodes = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.predict_batch(images)                      # warm-up
+    torch.cuda.synchronize()
+    warmup_s, encodes = time.perf_counter() - t0, encodes + 1
+    start = fd.decoder_logsoftmax_topk.launches
+    walls, encs = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        seqs, lengths = pipe.predict_batch(images)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        encodes += 1
+    n_steps = (fd.decoder_logsoftmax_topk.launches - start) // 5
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.encode(images)
+        torch.cuda.synchronize()
+        encs.append(time.perf_counter() - t0)
+        encodes += 1
+    traced = []   # profile_run calls it twice a window (its warm-up step)
+    trace = profile_run(torch, lambda: traced.append(pipe.predict_batch(images)))
+    encodes += len(traced)
+    counts = read_all_counts()
+    check_decode_counts(fd, decode_per_step(fd), fd.decoder_logsoftmax_topk.launches)
+    if counts["fused_ir_block"] == 0 or counts["fused_ir_block"] != N_BLOCKS * encodes:
+        raise SmokeFailure(f"fused_ir_block: {counts['fused_ir_block']} launches for "
+                           f"{encodes} encodes × {N_BLOCKS}")
+    if seqs.shape != (B, MAX_LEN) or not ((lengths >= 0) & (lengths <= MAX_LEN)).all() \
+            or (seqs < 0).any() or (seqs >= V).any():
+        raise SmokeFailure("fused main path: tokens or lengths out of range")
+    wall, enc = statistics.median(walls), statistics.median(encs)
+    say("fused_main_path", batch=B, wall_s=wall, wall_s_runs=walls, warmup_s=warmup_s,
+        encode_s=enc, encode_s_runs=encs, decode_s=wall - enc, decode_steps=n_steps,
+        images_per_s=B / wall, eager_wall_s=eager_out["wall_s"],
+        eager_encode_s=eager_out["encode_s"], encodes=encodes, launches=counts,
+        caption0=pipe.to_caption(seqs[0], lengths[0])[:60])
+    say("trace_fused_batch64", **trace)
+
+    def in_turns(call):
+        """Seconds of ``call(p)`` for each route, in turns: eager, fused,
+        fused, eager, five times."""
+        turns = {"eager": [], "fused": []}
+        for _ in range(5):
+            for name, p in (("eager", eager), ("fused", pipe), ("fused", pipe), ("eager", eager)):
+                t0 = time.perf_counter()
+                call(p)
+                torch.cuda.synchronize()
+                turns[name].append(time.perf_counter() - t0)
+        return turns
+
+    turns = in_turns(lambda p: p.encode(images))
+    say("encode_compare", batch=B, eager_encode_s=statistics.median(turns["eager"]),
+        fused_encode_s=statistics.median(turns["fused"]), runs=turns,
+        trace_eager=profile_run(torch, lambda: eager.encode(images)),
+        trace_fused=profile_run(torch, lambda: pipe.encode(images)))
+    turns = in_turns(lambda p: p.predict_batch(images))
+    say("predict_compare", batch=B, eager_wall_s=statistics.median(turns["eager"]),
+        fused_wall_s=statistics.median(turns["fused"]), runs=turns)
     return counts
+
+
+def png_bytes(arr) -> bytes:
+    """An 8-bit RGB PNG of (H, W, 3) uint8 ``arr``, written with zlib."""
+    h, w, _ = arr.shape
+    import numpy as np
+
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], 1).tobytes()
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def phase_cli(fd, torch, pipe, workdir):
+    """caption.main over a directory of PNGs vs predict_batch on the pixels."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch import caption
+
+    rng = np.random.default_rng(77)
+    pixels = rng.integers(0, 256, (CLI_FILES, SIZE, SIZE, 3), dtype=np.uint8)
+    img_dir = Path(workdir) / "images"
+    img_dir.mkdir()
+    for i, a in enumerate(pixels):
+        (img_dir / f"img{i:03d}.png").write_bytes(png_bytes(a))
+    out_path = Path(workdir) / "captions.json"
+    reset_all_counts()
+    t0 = time.perf_counter()
+    results = caption.main(pipe.config, str(img_dir), str(out_path), pipeline=pipe)
+    cli_s = time.perf_counter() - t0
+    counts = read_all_counts()
+    written = json.loads(out_path.read_text())
+    seqs, lengths = pipe.predict_batch(pixels)
+    want = [pipe.to_caption(seqs[i], lengths[i]) for i in range(CLI_FILES)]
+    got = [r["caption"] for r in written]
+    if written != results or [Path(r["file"]).name for r in written] != \
+            [f"img{i:03d}.png" for i in range(CLI_FILES)]:
+        raise SmokeFailure("CLI: the JSON file differs from the results or misses files")
+    if got != want:
+        bad = sum(a != b for a, b in zip(got, want))
+        raise SmokeFailure(f"CLI: {bad} of {CLI_FILES} captions differ from predict_batch")
+    encodes = -(-CLI_FILES // pipe.config.decode_batch)
+    if counts["fused_ir_block"] != N_BLOCKS * encodes:
+        raise SmokeFailure(f"CLI: {counts['fused_ir_block']} backbone launches for "
+                           f"{encodes} batches")
+    say("cli", files=CLI_FILES, decode_batch=pipe.config.decode_batch, seconds=cli_s,
+        launches=counts, equal_to_predict_batch=True, caption0=got[0][:60])
+    return {Path(r["file"]).name: r["caption"] for r in written}, img_dir
+
+
+def phase_server(torch, pipe, offline, img_dir):
+    """The server on port 0 in a thread; 8 concurrent POSTs of the PNGs."""
+    from fpn_mt_image_captioning_torch import serve
+
+    srv = serve.make_server(pipe.config, port=0, serve_batch=B, max_delay_ms=500.0,
+                            pipeline=pipe)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if not (health["status"] == "ok" and health["fused_backbone"]
+                and health["backend"] == str(pipe.device)):
+            raise SmokeFailure(f"server: /healthz {health}")
+        names = [f"img{i:03d}.png" for i in range(SERVER_REQUESTS)]
+
+        def post(name):
+            req = urllib.request.Request(base + "/caption", method="POST",
+                                         data=(img_dir / name).read_bytes())
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVER_REQUESTS) as pool:
+            replies = list(pool.map(post, names))
+        burst_s = time.perf_counter() - t0
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.close()
+        thread.join(timeout=60)
+    for name, (status, body) in zip(names, replies):
+        if status != 200 or body["caption"] != offline[name]:
+            raise SmokeFailure(f"server: {name} answered {status} {body!r}, offline "
+                               f"{offline[name]!r}")
+    say("server", requests=SERVER_REQUESTS, all_200=True, equal_to_offline=True,
+        burst_s=burst_s, batches=stats["batches"], mean_batch_fill=stats["mean_batch_fill"],
+        device_batch_ms=stats["device_batch_ms"], latency_ms=[b["latency_ms"] for _, b in replies])
 
 
 def main() -> int:
@@ -448,9 +876,10 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     from fpn_mt_image_captioning_torch.config import Config
     from fpn_mt_image_captioning_torch.data.tokenizer import REFERENCE_FILTERS, Tokenizer
-    from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import BatchNorm32
     from fpn_mt_image_captioning_torch.ops import _build
+    from fpn_mt_image_captioning_torch.ops import fused_backbone as fb
     from fpn_mt_image_captioning_torch.ops import fused_decoder as fd
+    from fpn_mt_image_captioning_torch.runtime import native_loader
     from fpn_mt_image_captioning_torch.train.pipeline import Pipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -463,37 +892,46 @@ def main() -> int:
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
-    libs = _build.build()
-    say("build", seconds=time.perf_counter() - t0, libraries=[p.name for p in libs.values()])
+    libs = _build.build()   # one nvcc per source, all started together
+    nvcc_s = time.perf_counter() - t0
+    if not native_loader.available():
+        raise SmokeFailure("the native image loader did not build (g++ and zlib)")
+    say("build", seconds=time.perf_counter() - t0, nvcc_seconds=nvcc_s,
+        libraries=[p.name for p in libs.values()] + [native_loader.library_path().name])
 
     table = phase_kernels(fd, torch, dev)
+    table["fused_ir_block"] = phase_backbone_kernels(fb, torch, dev)
+    phase_backbone_whole(fb, torch, dev)
 
     tokenizer = synthetic_tokenizer(Tokenizer, REFERENCE_FILTERS)
-    cfg = Config(beam_search_n=BEAM, compute_dtype="bfloat16")
-    pipe = Pipeline(tokenizer, MAX_LEN, cfg, seed=0, device=dev)
-    with torch.no_grad():   # perturb BN statistics and biases (they init to 0/1)
-        g = torch.Generator().manual_seed(7)
-        for m in pipe.transformer.modules():
-            if isinstance(m, BatchNorm32):
-                m.running_mean += 0.1 * torch.randn(m.running_mean.shape, generator=g).to(dev)
-                m.running_var *= (0.5 + torch.rand(m.running_var.shape, generator=g)).to(dev)
-        for name, p in pipe.transformer.named_parameters():
-            if name.rsplit(".", 1)[-1] in ("bias", "bq", "bo", "kv_bias"):
-                p += (0.1 * torch.randn(p.shape, generator=g)).to(dev, p.dtype)
-        pipe.packed = fd.pack_decoder_weights(pipe.transformer, pipe.dtype)
-
+    build = lambda **kw: make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **kw)
+    pipe = build()
     for dt_name in ("float32", "bfloat16"):
         phase_whole_step(fd, torch, dev, pipe, dt_name)
     phase_small_input(torch, dev, Config, Pipeline, tokenizer)
-    counts = phase_main(fd, torch, dev, pipe)
+    counts, eager64 = phase_main(fd, torch, dev, pipe)
+
+    fused = build(fused_backbone=True)
+    if fused.backbone_packed is None:
+        raise SmokeFailure("fused_backbone=True did not select the fused encode")
+    counts["fused_ir_block"] = phase_fused_main(
+        fd, fb, torch, fused, pipe, eager64)["fused_ir_block"]
+    del pipe
+    with tempfile.TemporaryDirectory() as workdir:
+        offline, img_dir = phase_cli(fd, torch, fused, workdir)
+        phase_server(torch, fused, offline, img_dir)
 
     kernels = []
-    for k in fd.KERNELS:
+    for k in all_kernels():
         row = table[k.__name__]
         bound_ms, bound_by = row.pop("bound")
-        kernels.append({"name": k.__name__, "route": "cuda", "source": SOURCE,
-                        "replaces": TPU_KERNEL, "launches": counts[k.__name__], **row,
+        is_fd = k in fd.KERNELS
+        kernels.append({"name": k.__name__, "route": "cuda",
+                        "source": SOURCE if is_fd else BACKBONE_SOURCE,
+                        "replaces": TPU_KERNEL if is_fd else BACKBONE_TPU_KERNEL,
+                        "launches": counts[k.__name__], **row,
                         "bound_ms": bound_ms, "bound_by": bound_by})
+    say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,7 @@ same model in both packages. The defaults reproduce the original reference's
 constants module (``common/common_definitions.py:6-70``); the knobs after
 "accelerator knobs" (mesh axes, dtypes, decode batching) have no reference
 counterpart. Some of them steer parts of the JAX package that the port has not
-reached yet (mesh, remat, export, profiling, the fused backbone); they are kept
+reached yet (mesh, remat, export, profiling); they are kept
 so a ``Config`` built for either package is accepted by both.
 
 Unlike the reference, nothing here is global mutable state: construct a ``Config``
@@ -134,8 +134,9 @@ class Config:
                                             # (iter_batches pads the tail batch)
     beam_parity_mode: bool = False          # reproduce reference prob-product/tied-beam quirks
     use_pallas: bool = True                 # fused decode step (hand-written kernels)
-    fused_backbone: bool = False            # hand-written backbone kernel (JAX package
-                                            # only so far; off by default)
+    fused_backbone: bool = False            # encode through the hand-written fused
+                                            # MobileNetV2 block kernel
+                                            # (ops/fused_backbone.py); off by default
     max_decode_rows: int = 512              # decode rows (batch*beam) per fused
                                             # decode launch; larger predict_batch
                                             # calls are chunked host-side. 0

@@ -66,3 +66,11 @@ class FeatureExtractor(nn.Module):
         the five views (B, d_model, S/16 … S/256, same)."""
         C3, C4, C5 = self.backbone(images)
         return [self._per_level(p) for p in self.fpn(C3, C4, C5)]
+
+    def from_taps(self, C3: torch.Tensor, C4: torch.Tensor, C5: torch.Tensor) -> list[torch.Tensor]:
+        """FPN + heads from precomputed NHWC backbone taps (the fused-backbone
+        path, ``ops/fused_backbone.py``); each is turned to NCHW once, in the
+        model's dtype."""
+        dtype = self.fuse_conv1.weight.dtype
+        C3, C4, C5 = (c.permute(0, 3, 1, 2).to(dtype).contiguous() for c in (C3, C4, C5))
+        return [self._per_level(p) for p in self.fpn(C3, C4, C5)]

@@ -88,6 +88,11 @@ class Encoder(nn.Module):
         x = normalize_images(images).permute(0, 3, 1, 2).to(dtype)
         return self.encode_views(self.feature_extractor(x))
 
+    def from_taps(self, c3: torch.Tensor, c4: torch.Tensor, c5: torch.Tensor) -> torch.Tensor:
+        """Encode from precomputed NHWC backbone taps (the fused-backbone
+        serving path, ``ops/fused_backbone.py``)."""
+        return self.encode_views(self.feature_extractor.from_taps(c3, c4, c5))
+
     def encode_views(self, views: list[torch.Tensor]) -> torch.Tensor:
         """``views``: the five NCHW feature-extractor outputs."""
         embedded = []
@@ -175,6 +180,9 @@ class Transformer(nn.Module):
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
         return self.encoder(images)
+
+    def encode_from_taps(self, c3: torch.Tensor, c4: torch.Tensor, c5: torch.Tensor) -> torch.Tensor:
+        return self.encoder.from_taps(c3, c4, c5)
 
     def forward(self, enc_output: torch.Tensor, tar: torch.Tensor,
                 look_ahead_mask: Optional[torch.Tensor] = None):

@@ -24,7 +24,7 @@ __all__ = ["SOURCES", "build", "load_library"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("fused_decoder",)
+SOURCES = ("fused_decoder", "fused_backbone")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

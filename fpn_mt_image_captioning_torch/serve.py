@@ -1,0 +1,361 @@
+"""HTTP captioning server with dynamic batching (port of the repository's root
+``serve.py``): a standard-library HTTP server that coalesces concurrent
+single-image requests into fixed-size ``Pipeline.predict_batch`` calls on the
+CUDA card.
+
+  * Fixed batch: every device batch is padded to ``serve_batch`` (default
+    ``Config.decode_batch``), so each call has the shape the warm-up ran.
+  * Dynamic batching: the batcher thread takes the first queued request,
+    then waits up to ``max_delay_ms`` (default 10) for the batch to fill.
+  * Host work off the card's path: image decode on the HTTP handler threads
+    (ThreadingHTTPServer), detokenization on the batcher thread.
+
+Endpoints:
+  POST /caption        image bytes (PNG, JPEG, anything PIL reads) in the
+                       body → {"caption": str, "tokens": int, "latency_ms"}
+  GET  /healthz        liveness and model/config info
+  GET  /stats          request/batch counters, batch fill, device-batch times
+  POST /stats/reset    zero the counters and the timing window
+
+Overload: the request queue is bounded (``max_queue``, default 8 ×
+serve_batch); beyond it a request gets 503 + Retry-After. An undecodable
+body is a 400, an unknown path a 404.
+
+    python -m fpn_mt_image_captioning_torch.serve [--port=8500]
+        [--serve_batch=64] [--max_delay_ms=10] [--max_queue=N]
+        [--request_timeout_s=1800] [--beam_search_n=8] [--fused_backbone=true]
+        [any Config --key=value]
+
+Sampling (``--decode=sample``) and serving a compiled export
+(``--artifact``) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import signal
+import sys
+import threading
+import time
+from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
+
+import numpy as np
+
+from .config import Config
+from .data.dataset import load_image
+from .train.pipeline import Pipeline
+from .utils.profiling import StepTimer
+
+__all__ = ["QueueFull", "DynamicBatcher", "CaptionServer", "decode_image_bytes",
+           "make_server", "main"]
+
+
+def decode_image_bytes(data: bytes, image_size: int, as_uint8: bool = False) -> np.ndarray:
+    """A request body → the resized image, as ``data.dataset.load_image``
+    gives it for a file (PIL decode, bilinear resize; uint8 with
+    ``as_uint8``, else [-1, 1] float32)."""
+    return load_image(io.BytesIO(data), image_size=image_size, as_uint8=as_uint8)[0]
+
+
+class QueueFull(RuntimeError):
+    """``DynamicBatcher.submit`` when the queue holds ``max_queue`` images;
+    the HTTP layer answers 503 + Retry-After."""
+
+
+class DynamicBatcher:
+    """Coalesces submitted images into fixed-size ``predict_batch`` calls on a
+    dedicated thread; callers get a Future of ``(caption, tokens)``."""
+
+    def __init__(self, pipeline: Pipeline, batch: int, max_delay_ms: float,
+                 max_queue: int | None = None):
+        self.pipeline = pipeline
+        self.batch = batch
+        self.max_delay_s = max_delay_ms / 1000.0
+        self.decode = "beam"
+        # backpressure: beyond this many queued images submit() raises
+        self.max_queue = 8 * batch if max_queue is None else max_queue
+        self._queue: list[tuple[np.ndarray, Future]] = []
+        self._lock = threading.Condition()
+        self._closed = False
+        self.stats = {"requests": 0, "batches": 0, "images_padded": 0, "errors": 0,
+                      "rejected": 0}
+        self.timer = StepTimer(window=512)   # wall time per device batch
+        # bumped by reset_stats: a batch in flight across a reset must not
+        # count into the freshly zeroed window
+        self._stats_gen = 0
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def reset_stats(self) -> None:
+        """Zero the counters and the timing window (POST /stats/reset)."""
+        with self._lock:
+            for k in self.stats:
+                self.stats[k] = 0
+            self.timer = StepTimer(window=512)
+            self._stats_gen += 1
+
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def submit(self, img: np.ndarray) -> Future:
+        fut: Future = Future()
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("batcher is closed")
+            if len(self._queue) >= self.max_queue:
+                self.stats["rejected"] += 1
+                raise QueueFull(f"{len(self._queue)} images already queued "
+                                f"(max_queue={self.max_queue}); retry later")
+            self._queue.append((img, fut))
+            self.stats["requests"] += 1
+            self._lock.notify()
+        return fut
+
+    def _take_batch(self):
+        """Block for the first request, then fill until the batch is full or
+        ``max_delay_s`` has passed since the first arrival."""
+        with self._lock:
+            while not self._queue and not self._closed:
+                self._lock.wait(timeout=0.2)
+            if not self._queue:
+                return None   # closed and drained
+            deadline = time.monotonic() + self.max_delay_s
+            while len(self._queue) < self.batch and not self._closed:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._lock.wait(timeout=remaining)
+            items, self._queue = self._queue[: self.batch], self._queue[self.batch:]
+            return items
+
+    def _worker(self):
+        while True:
+            items = self._take_batch()
+            if items is None:
+                return
+            with self._lock:
+                gen, timer = self._stats_gen, self.timer
+            pad = self.batch - len(items)
+            failed = False
+            try:
+                # batch assembly inside the try: a failure here must fail
+                # these futures, not kill the only batcher thread
+                imgs = np.stack([im for im, _ in items])
+                if pad:
+                    imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]), imgs.dtype)])
+                timer.start()
+                seqs, lengths = self.pipeline.predict_batch(imgs)
+                timer.stop()
+                for i, (_, fut) in enumerate(items):
+                    if not fut.done():   # close() may have failed it already
+                        fut.set_result((self.pipeline.to_caption(seqs[i], lengths[i]),
+                                        int(lengths[i])))
+            except BaseException as e:  # noqa: BLE001 - every caller must unblock
+                failed = True
+                for _, fut in items:
+                    if not fut.done():
+                        fut.set_exception(e)
+            with self._lock:
+                if gen == self._stats_gen:
+                    self.stats["batches"] += 1
+                    self.stats["images_padded"] += pad
+                    if failed:
+                        self.stats["errors"] += 1
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+            self._lock.notify_all()
+        self._thread.join(timeout=30)
+        with self._lock:
+            leftovers, self._queue = self._queue, []
+        for _, fut in leftovers:
+            if not fut.done():
+                fut.set_exception(RuntimeError("server shutting down"))
+
+
+class CaptionServer(ThreadingHTTPServer):
+    daemon_threads = True
+    # listen backlog: the default of 5 resets connections when a burst of
+    # clients connects at once
+    request_queue_size = 128
+
+    def __init__(self, addr, pipeline: Pipeline, cfg: Config, batch: int,
+                 max_delay_ms: float, request_timeout_s: float = 600.0,
+                 max_queue: int | None = None):
+        self.pipeline = pipeline
+        self.cfg = cfg
+        # the pipeline normalizes uint8 on the card (4× smaller transfer)
+        self.input_uint8 = bool(getattr(pipeline, "accepts_uint8", False))
+        self.batcher = DynamicBatcher(pipeline, batch, max_delay_ms, max_queue=max_queue)
+        self.request_timeout_s = request_timeout_s
+        super().__init__(addr, _Handler)
+
+    def close(self):
+        self.batcher.close()
+        self.pipeline.close()
+        self.server_close()   # release the listening socket (shutdown() does not)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    server: CaptionServer
+
+    def _reply(self, code: int, payload: dict, extra_headers: dict[str, str] | None = None):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def log_message(self, fmt, *args):   # quiet: the counters live at /stats
+        pass
+
+    def do_GET(self):
+        srv = self.server
+        if self.path == "/healthz":
+            self._reply(200, {
+                "status": "ok",
+                "backend": str(getattr(srv.pipeline, "device", "unknown")),
+                "serve_batch": srv.batcher.batch,
+                "decode": srv.batcher.decode,
+                "beam": srv.cfg.beam_search_n,
+                "image_size": srv.cfg.image_input_size,
+                "fused_backbone": getattr(srv.pipeline, "backbone_packed", None) is not None,
+            })
+        elif self.path == "/stats":
+            with srv.batcher._lock:
+                st = dict(srv.batcher.stats)
+                timer = srv.batcher.timer
+            done = st["batches"] * srv.batcher.batch - st["images_padded"]
+            st["mean_batch_fill"] = round(done / st["batches"], 2) if st["batches"] else 0.0
+            st["queue_depth"] = srv.batcher.queue_depth()
+            st["max_queue"] = srv.batcher.max_queue
+            st["device_batch_ms"] = {k: round(v, 2) for k, v in timer.summary().items()}
+            self._reply(200, st)
+        else:
+            self._reply(404, {"error": f"no such path {self.path}"})
+
+    def do_POST(self):
+        parts = urlsplit(self.path)
+        length = int(self.headers.get("Content-Length", 0))
+
+        def drain():   # an unread body would corrupt HTTP/1.1 keep-alive framing
+            if length:
+                self.rfile.read(length)
+
+        if parts.path == "/stats/reset":
+            drain()
+            self.server.batcher.reset_stats()
+            self._reply(200, {"status": "reset"})
+            return
+        if parts.path != "/caption":
+            drain()
+            self._reply(404, {"error": f"no such path {self.path}"})
+            return
+        srv = self.server
+        query = parse_qs(parts.query)
+        if "temperature" in query or "top_p" in query:
+            drain()
+            self._reply(400, {"error": "sampling params need --decode=sample, which is not "
+                                       "ported yet (this server decodes beam search)"})
+            return
+        try:
+            if not length:
+                self._reply(400, {"error": "empty body; POST raw image bytes"})
+                return
+            img = decode_image_bytes(self.rfile.read(length), srv.cfg.image_input_size,
+                                     as_uint8=srv.input_uint8)
+        except Exception as e:
+            self._reply(400, {"error": f"undecodable image: {e}"})
+            return
+        try:
+            t0 = time.perf_counter()
+            caption, ntok = srv.batcher.submit(img).result(timeout=srv.request_timeout_s)
+            self._reply(200, {"caption": caption, "tokens": ntok,
+                              "latency_ms": round((time.perf_counter() - t0) * 1000, 1)})
+        except QueueFull as e:
+            # shed load: tell the client to back off about one batch time
+            ms = srv.batcher.timer.summary().get("p50_ms", 100.0)
+            self._reply(503, {"error": f"overloaded: {e}"},
+                        extra_headers={"Retry-After": str(max(1, round(ms / 1000)))})
+        except Exception as e:
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+
+
+def make_server(cfg: Config, host: str = "127.0.0.1", port: int = 8500,
+                serve_batch: int | None = None, max_delay_ms: float = 10.0,
+                pipeline: Pipeline | None = None, decode: str = "beam",
+                max_queue: int | None = None,
+                request_timeout_s: float = 600.0) -> CaptionServer:
+    """Build (but do not run) the server; tests use ``port=0`` and
+    ``serve_forever`` in a thread. ``pipeline=None`` builds
+    ``Pipeline.from_config(cfg)`` on the card."""
+    if decode == "sample":
+        raise NotImplementedError("decode='sample': sampling is not ported yet")
+    if decode != "beam":
+        raise ValueError(f"decode must be 'beam' or 'sample', got {decode!r}")
+    if pipeline is None:
+        pipeline = Pipeline.from_config(cfg)
+    batch = serve_batch or max(cfg.decode_batch, 1)
+    return CaptionServer((host, port), pipeline, cfg, batch, max_delay_ms,
+                         request_timeout_s=request_timeout_s, max_queue=max_queue)
+
+
+def main(argv: list[str]) -> None:
+    host, port, serve_batch, max_delay_ms = "0.0.0.0", 8500, None, 10.0
+    decode, max_queue, request_timeout_s = "beam", None, 1800.0
+    passthrough = []
+    for arg in argv:
+        key, _, val = arg.partition("=")
+        if key == "--max_queue":
+            max_queue = int(val)
+        elif key == "--request_timeout_s":
+            request_timeout_s = float(val)
+        elif key == "--port":
+            port = int(val)
+        elif key == "--host":
+            host = val
+        elif key == "--serve_batch":
+            serve_batch = int(val)
+        elif key == "--max_delay_ms":
+            max_delay_ms = float(val)
+        elif key == "--decode":
+            decode = val
+        elif key == "--artifact":
+            raise NotImplementedError("--artifact: serving a compiled export is not ported yet")
+        else:
+            passthrough.append(arg)
+    cfg = Config.from_flags(passthrough)
+    server = make_server(cfg, host, port, serve_batch, max_delay_ms, decode=decode,
+                         max_queue=max_queue, request_timeout_s=request_timeout_s)
+
+    # warm-up before accepting traffic: kernel builds and cuDNN plans
+    warm = np.zeros((server.batcher.batch, cfg.image_input_size, cfg.image_input_size, 3),
+                    np.uint8 if server.input_uint8 else np.float32)
+    t0 = time.perf_counter()
+    server.pipeline.predict_batch(warm)
+    print(f"warm-up done in {time.perf_counter() - t0:.1f}s")
+
+    # SIGTERM: finish in-flight batches, refuse new work, release the card
+    signal.signal(signal.SIGTERM,
+                  lambda *_: threading.Thread(target=server.shutdown, daemon=True).start())
+    print(f"serving on http://{host}:{port}  (batch={server.batcher.batch}, "
+          f"beam={cfg.beam_search_n}, delay={max_delay_ms}ms)")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -2,8 +2,11 @@
 ``fpn_mt_image_captioning_tpu/train/pipeline.py``).
 
 ``predict_batch`` encodes a batch of images and runs the batched beam search
-on the fused decode step; ``to_caption`` detokenizes. Checkpoint restore,
-training, ``evaluate`` and the multi-device paths are not ported yet.
+on the fused decode step; ``to_caption`` detokenizes. With
+``Config.fused_backbone`` (and ``use_pallas``) the encode runs the MobileNetV2
+backbone as fused inverted-residual kernels (``ops/fused_backbone.py``); a
+fault there raises, it never falls back to the eager encode. Checkpoint
+restore, training, ``evaluate`` and the multi-device paths are not ported yet.
 
 Weights come either from the JAX package (its variables tree as numpy arrays,
 through ``weights.from_flax``) or from a seeded init. With
@@ -17,15 +20,19 @@ PyTorch versions of the kernels).
 
 from __future__ import annotations
 
+import os
 from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from ..config import Config
+from ..data.dataset import load_max_seq_len
 from ..data.tokenizer import Tokenizer, load_tokenizer_from_path
 from ..decode.beam_search import beam_search, cast_for_inference
 from ..models.transformer import Transformer
+from ..ops.fused_backbone import (fused_encode, pack_backbone_weights, packed_to,
+                                  supports_fused_backbone)
 from ..ops.fused_decoder import FUSED_ACTIVATIONS, pack_decoder_weights
 from ..weights import from_flax, init_weights
 
@@ -86,14 +93,47 @@ class Pipeline:
         else:
             init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
         self.dtype = getattr(torch, cfg.compute_dtype)
+        # the fused backbone folds BatchNorm from the float32 weights, before
+        # the cast below (the JAX package folds float32 parameters too)
+        self.backbone_packed = None
+        if cfg.use_pallas and cfg.fused_backbone and supports_fused_backbone(cfg.backbone):
+            self.backbone_packed = packed_to(pack_backbone_weights(
+                model.encoder.feature_extractor.backbone, self.dtype), self.device)
         self.transformer = cast_for_inference(model.eval(), self.dtype).to(self.device)
         self.packed = pack_decoder_weights(self.transformer, self.dtype)
+
+    @classmethod
+    def from_config(cls, cfg: Config, *, device: str | torch.device | None = None) -> "Pipeline":
+        """The serving pipeline the CLI and the server build: tokenizer from
+        ``cfg.tokenizer_filename``, ``max_seq_len`` from
+        ``cfg.additional_filename``. The JAX package restores the latest Orbax
+        checkpoint under ``cfg.transformer_checkpoint_path``, or boots from
+        ``cfg.retinanet_weight_path``; reading either is not ported, so where
+        one exists this raises instead of serving seeded weights in its
+        place. With neither, the weights are the seeded init, as there."""
+        ckpt = cfg.transformer_checkpoint_path
+        if ckpt and os.path.isdir(ckpt) and os.listdir(ckpt):
+            raise NotImplementedError(
+                f"a checkpoint exists under {ckpt!r}, and reading Orbax checkpoints is not "
+                "ported yet; serving seeded weights in its place would be wrong")
+        if cfg.retinanet_weight_path:
+            raise NotImplementedError(
+                f"retinanet_weight_path={cfg.retinanet_weight_path!r}: importing Keras "
+                "RetinaNet weights is not ported yet")
+        return cls(cfg.tokenizer_filename, load_max_seq_len(cfg.additional_filename), cfg,
+                   device=device)
+
+    def close(self) -> None:
+        """Nothing to release (the JAX pipeline closes its checkpoint manager)."""
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def encode(self, images) -> torch.Tensor:
         """(B, S, S, 3) uint8 or [-1, 1] float images → (B, Lenc, d_model)."""
-        return self.transformer.encode(torch.as_tensor(np.asarray(images), device=self.device))
+        images = torch.as_tensor(np.asarray(images), device=self.device)
+        if self.backbone_packed is not None:
+            return fused_encode(self.transformer, self.backbone_packed, images)
+        return self.transformer.encode(images)
 
     def predict_batch(self, images, beam_n: int | None = None):
         """Caption a batch of images, (B, S, S, 3) uint8 or float in [-1, 1].

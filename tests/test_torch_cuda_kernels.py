@@ -158,3 +158,57 @@ def test_fused_decode_step_matches_reference(dev, dtype):
             src = src[:, (torch.arange(bk, device=dev) // beam) * beam]
         src[t + 1] = own
     assert float((ck["k_self"].float() - cr["k_self"].float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# the fused MobileNetV2 block (csrc/fused_backbone.cu)
+# ---------------------------------------------------------------------------
+def _ir_block(g, cin, cexp, cout, expand, dtype, dev):
+    blk = {}
+    if expand:
+        blk["w_exp"] = rand(g, cin, cexp, scale=cin ** -0.5, dtype=dtype, dev=dev)
+        blk["b_exp"] = rand(g, cexp, scale=0.5, dev=dev)
+    blk["w_dw"] = rand(g, 9, cexp, scale=0.3, dev=dev)
+    blk["b_dw"] = rand(g, cexp, scale=0.5, dev=dev)
+    blk["w_proj"] = rand(g, cexp, cout, scale=cexp ** -0.5, dtype=dtype, dev=dev)
+    blk["b_proj"] = rand(g, cout, scale=0.5, dev=dev)
+    return blk
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hw,cin,cexp,cout,stride,expand,residual", [
+    (2, 20, 40, 240, 40, 1, True, True),       # extents not a multiple of the 8-pixel tile
+    (3, 6, 24, 144, 400, 2, True, False),      # two 320-channel slices of the output
+    (1, 14, 136, 816, 224, 2, True, False),    # alpha-1.4 width: 4-row tiles
+    (2, 10, 16, 16, 8, 2, False, False),       # no expand at stride 2
+    (1, 2, 8, 48, 8, 1, True, True),           # a 2×2 image inside one tile
+    (2, 9, 12, 72, 20, 1, True, False),        # odd extent at stride 1, channels not /8
+])
+def test_fused_ir_block(dev, dtype, b, hw, cin, cexp, cout, stride, expand, residual):
+    from fpn_mt_image_captioning_torch.ops import fused_backbone as fb
+
+    g = torch.Generator().manual_seed(hw * 31 + cin)
+    x = rand(g, b, hw, hw, cin, dtype=dtype, dev=dev)
+    blk = _ir_block(g, cin, cexp, cout, expand, dtype, dev)
+    before = fb.fused_ir_block.launches
+    got = fb.fused_ir_block(x, blk, stride=stride, residual=residual)
+    assert fb.fused_ir_block.launches == before + 1
+    want = fb.fused_ir_block_reference(x, blk, stride=stride, residual=residual)
+    assert got.shape == (b, hw // stride, hw // stride, cout) and got.dtype == dtype
+    got, want = got.float(), want.float()
+    tol = 2e-4 + 1e-3 * want.abs() if dtype == torch.float32 else 1e-2 + 1e-2 * want.abs()
+    assert torch.isfinite(got).all() and bool(((got - want).abs() <= tol).all())
+
+
+def test_fused_ir_block_rejects_bad_inputs(dev):
+    from fpn_mt_image_captioning_torch.ops import fused_backbone as fb
+
+    g = torch.Generator().manual_seed(0)
+    blk = _ir_block(g, 16, 96, 24, True, torch.float32, dev)
+    with pytest.raises(ValueError, match="even extents"):
+        fb.fused_ir_block(rand(g, 1, 7, 8, 16, dev=dev), blk, stride=2, residual=False)
+    with pytest.raises(ValueError, match="w_exp"):
+        fb.fused_ir_block(rand(g, 1, 8, 8, 16, dtype=torch.bfloat16, dev=dev), blk, stride=1,
+                          residual=False)
+    with pytest.raises(ValueError, match="residual"):
+        fb.fused_ir_block(rand(g, 1, 8, 8, 16, dev=dev), blk, stride=1, residual=True)

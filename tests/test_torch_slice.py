@@ -60,8 +60,9 @@ def perturb(tree, rng):
     return a + 0.1 * (a.std() or 0.1) * rng.standard_normal(a.shape).astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def setup():
+def slice_variables():
+    """The JAX model, its tokenizer, the perturbed variables both packages
+    load, and three seeded uint8 images (also used by the serving tests)."""
     jtok = fit(JxTokenizer)
     vocab = len(jtok.index_word)
     jx = JxTransformer(
@@ -90,6 +91,11 @@ def setup():
     variables = {"params": params, "batch_stats": stats}
     images = np.random.default_rng(7).integers(0, 256, (3, SIZE, SIZE, 3), dtype=np.uint8)
     return jx, jtok, variables, images
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return slice_variables()
 
 
 def jax_beam_margins(jx, variables, enc, start, end):
@@ -208,25 +214,33 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, in a fresh interpreter, loads
-    neither JAX, Flax nor the JAX package; no source names them either."""
+    """Importing every module of the port (the CLI, the server, the fused
+    backbone, the image loader among them) and ``chip_smoke``, in a fresh
+    interpreter, loads neither JAX, Flax nor the JAX package; no source
+    names them either."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fpn_mt_image_captioning_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names + ['chip_smoke']:\n"
+        "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fpn_mt_image_captioning_tpu'))\n"
         "assert not bad, bad\n"
+        "print(' '.join(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+    imported = set(out.stdout.split())
+    for name in ("caption", "serve", "ops.fused_backbone", "ops.fused_decoder",
+                 "runtime.native_loader", "data.dataset", "utils.profiling"):
+        assert f"fpn_mt_image_captioning_torch.{name}" in imported, name
 
-    for path in PORT.rglob("*.py"):
-        if path.relative_to(PORT).parts[0] == "build":   # kernel build outputs
-            continue
+    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
+        if path.is_relative_to(PORT) and path.relative_to(PORT).parts[0] == "build":
+            continue   # kernel build outputs
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
