@@ -11,7 +11,7 @@ the script exits non-zero without its last line):
      versions; TF32 is switched off for matmuls and convolutions, so float32
      means float32;
   2. build — every CUDA kernel compiled from the sources in this checkout
-     (one nvcc per source, started together), and the native image loader
+     (one nvcc per library, started together), and the native image loader
      (g++), which must report itself available;
   3. decode kernels vs plain — each hand-written kernel of the fused decode
      step held to its plain PyTorch version at the flagship decode shapes
@@ -33,14 +33,25 @@ the script exits non-zero without its last line):
      where roundings that the summation order flips cascade through 17
      blocks, the kernel route may stray from the float32 result no further
      than the plain route in bfloat16 does (relative L2, 25 % + 1e-3);
-  6. whole step — ``fused_decode_step`` held to
+  6. probes — the three probe entry points
+     (``fpn_mt_image_captioning_torch/scripts/probe_*.py``; kernels in
+     ``csrc/probes.cu`` and the decode step's on ``csrc/fused_decoder.cu``
+     built with empty bodies) at their full sizes, counters reset just
+     before and read just after, each wrapper's count equal to what the
+     probes' loops launch (a CUDA-graph capture counts once, a replay not at
+     all); one line of slopes, the decoder-shaped step eager against a
+     CUDA-graph replay; then each probe kernel held to its plain version,
+     exactly (x + 1 and 2·x are exact in their dtypes, the step's result is
+     a copy), with its device time, its plain version's, a PyTorch call's
+     where one computes the same, and its bound;
+  7. whole step — ``fused_decode_step`` held to
      ``fused_decode_step_reference`` over 8 state-synchronised steps (a beam
      reorder, finished rows, the kernel's chosen tokens fed to both); scores
      within atol 3e-4 (float32) / 0.1 (bfloat16), ids equal wherever the
      plain version's neighbouring candidates are further apart than that;
-  7. small input — ``Pipeline.predict_batch`` of a small float32 model on the
+  8. small input — ``Pipeline.predict_batch`` of a small float32 model on the
      card against the same model on the CPU (plain versions): equal tokens;
-  8. main path — ``Pipeline.predict_batch`` at full width (512² uint8 images,
+  9. main path — ``Pipeline.predict_batch`` at full width (512² uint8 images,
      mobilenet224_1.0, d_model 512, 6+6 layers, dff 2048, 8 heads, beam 8,
      max_seq_len 60, vocab 2000, bfloat16; seeded weights with BatchNorm
      statistics and biases perturbed) on 8 images and then 64 (512 decode
@@ -49,20 +60,21 @@ the script exits non-zero without its last line):
      counters reset just before and read just after, each decode kernel's
      non-zero and equal to the decode steps × its launches per step, the
      backbone kernel's zero (this encode runs cuDNN);
-  9. fused main path — the same ``predict_batch`` at batch 64 with
+ 10. fused main path — the same ``predict_batch`` at batch 64 with
      ``fused_backbone=True`` (same weights): counters reset just before and
      read just after, ``fused_ir_block`` at 17 × the encodes; then the fused
      encode against the eager one in turns (eager, fused, fused, eager, five
      times), one traced encode of each, and the whole ``predict_batch`` of
      both routes in turns the same way;
- 10. CLI — ``fpn_mt_image_captioning_torch.caption.main`` over a temporary
+ 11. CLI — ``fpn_mt_image_captioning_torch.caption.main`` over a temporary
      directory of 70 PNGs (512², written with zlib and struct) at
      decode_batch 64 (one full batch, one padded): captions equal to
      ``predict_batch`` on the same pixels;
- 11. server — ``serve.make_server(port=0)`` in a thread, 8 concurrent POSTs of
+ 12. server — ``serve.make_server(port=0)`` in a thread, 8 concurrent POSTs of
      those PNGs: each 200, each caption the CLI's for that file.
 
-Then the kernel table as one JSON line, the card's name and power limit, and
+Then the kernel table as one JSON line (every kernel: the decode step's, the
+backbone's and the probes'), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -94,6 +106,19 @@ TPU_KERNEL = "fpn_mt_image_captioning_tpu/ops/fused_decoder.py:164"
 SOURCE = "fpn_mt_image_captioning_torch/csrc/fused_decoder.cu"
 BACKBONE_TPU_KERNEL = "fpn_mt_image_captioning_tpu/ops/fused_backbone.py:140"
 BACKBONE_SOURCE = "fpn_mt_image_captioning_torch/csrc/fused_backbone.cu"
+PROBE_SOURCE = "fpn_mt_image_captioning_torch/csrc/probes.cu"
+_STEP_TPU = "scripts/probe_launch_overhead.py:189"
+_SLAB_D_TPU = "scripts/probe_grid_cell.py:188"
+PROBE_TPU_KERNELS = {
+    "add_one": "scripts/probe_launch_overhead.py:53; scripts/probe_pallas_overhead.py:36",
+    "add_one_grid7": "scripts/probe_launch_overhead.py:80",
+    "decoder_linear_trivial": _STEP_TPU, "decoder_add_layernorm_trivial": _STEP_TPU,
+    "decoder_self_attention_trivial": _STEP_TPU, "decoder_cross_attention_trivial": _STEP_TPU,
+    "decoder_logsoftmax_topk_trivial": _STEP_TPU,
+    "slab_copy_4d": "scripts/probe_grid_cell.py:84", "slab_copy_3d": "scripts/probe_grid_cell.py:118",
+    "slab_copy_lane128": "scripts/probe_grid_cell.py:154", "slab_copy_flat": _SLAB_D_TPU,
+    "slab_copy_flat_loads": _SLAB_D_TPU, "slab_copy_flat_cp_async": _SLAB_D_TPU,
+}
 SIZE, N_BLOCKS, CLI_FILES, SERVER_REQUESTS = 512, 17, 70, 8
 
 
@@ -115,7 +140,7 @@ def card_line() -> str:
 TIMING = {"bench_calls": 0, "profiler_windows_retried": 0}
 
 
-def bench(fn, iters: int = 20, reps: int = 5) -> tuple[float, float]:
+def bench(fn, iters: int = 20, reps: int = 5, kernels: bool = True) -> tuple[float, float]:
     """``(device_ms, wall_ms)`` of one call of ``fn``. Device time is the sum
     of its kernels' durations as the CUDA profiler records them over
     ``iters`` calls, after warm-up. A Python loop of small launches is bound
@@ -124,9 +149,13 @@ def bench(fn, iters: int = 20, reps: int = 5) -> tuple[float, float]:
 
     Every call of ``fn`` launches the same kernels, so a window whose kernel
     count is not a multiple of ``iters`` lost some (CUPTI has been seen to
-    drop launches) and is profiled again, up to three times; then this
-    raises, so no wall time ever stands in for a device time."""
+    drop launches) and is profiled again, up to five times; then this
+    raises with the counts it saw, so no wall time ever stands in for a
+    device time. With ``kernels=False`` ``fn`` runs nothing on the card
+    (it only allocates), and a window with no kernel gives 0.0."""
     import torch
+
+    from fpn_mt_image_captioning_torch.utils.profiling import cuda_kernel_times
 
     TIMING["bench_calls"] += 1
     for _ in range(3):
@@ -142,35 +171,16 @@ def bench(fn, iters: int = 20, reps: int = 5) -> tuple[float, float]:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     wall = statistics.median(times)
-    for attempt in range(3):
-        rows, _ = device_times(torch, lambda: [fn() for _ in range(iters)])
+    seen = []
+    for attempt in range(5):
+        rows, _ = cuda_kernel_times(lambda: [fn() for _ in range(iters)])
         launches = sum(c for _, _, c in rows)
-        if launches and launches % iters == 0:
+        if (launches or not kernels) and launches % iters == 0:
             return sum(us for _, us, _ in rows) / iters / 1e3, wall
         TIMING["profiler_windows_retried"] += 1
-    raise SmokeFailure(f"the CUDA profiler lost launches in three windows of {iters} calls")
-
-
-def device_times(torch, fn) -> tuple[list[tuple[str, float, int]], float]:
-    """``(kernel name, device µs, count)`` of every kernel and copy that
-    ``fn`` ran, and the wall ms of ``fn``, from one CUDA-profiler window. The
-    window runs ``fn`` twice and keeps the second run: the profiler's
-    warm-up step absorbs what tracing misses while it starts."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        prof.step()
-    return ([(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-             if e.self_device_time_total > 0], wall_ms)
+        seen.append(sorted((k[:60], c) for k, _, c in rows))
+    raise SmokeFailure(f"the CUDA profiler lost launches in five windows of {iters} calls: "
+                       f"(kernel, launches) per window {seen}")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -428,8 +438,10 @@ def profile_run(torch, fn) -> dict:
     idle share, and the device time by kernel name, largest first. A window
     that records nothing is run again, up to three times; then this
     raises."""
+    from fpn_mt_image_captioning_torch.utils.profiling import cuda_kernel_times
+
     for _ in range(3):
-        rows, wall_ms = device_times(torch, fn)
+        rows, wall_ms = cuda_kernel_times(fn)
         if rows:
             break
     else:
@@ -508,16 +520,17 @@ def check_decode_counts(fd, per_step, steps) -> None:
 
 
 def all_kernels():
-    from fpn_mt_image_captioning_torch.ops import fused_backbone, fused_decoder
+    from fpn_mt_image_captioning_torch.ops import fused_backbone, fused_decoder, probes
 
-    return fused_decoder.KERNELS + fused_backbone.KERNELS
+    return fused_decoder.KERNELS + fused_backbone.KERNELS + probes.KERNELS
 
 
 def reset_all_counts() -> None:
-    from fpn_mt_image_captioning_torch.ops import fused_backbone, fused_decoder
+    from fpn_mt_image_captioning_torch.ops import fused_backbone, fused_decoder, probes
 
     fused_decoder.reset_launch_counts()
     fused_backbone.reset_launch_counts()
+    probes.reset_launch_counts()
 
 
 def read_all_counts() -> dict:
@@ -667,6 +680,133 @@ def phase_backbone_whole(fb, torch, dev):
             raise SmokeFailure(f"fused backbone {name} bfloat16: {r}")
     say("backbone_whole", images=8, size=SIZE, shapes=[list(t.shape) for t in got16],
         note="bf16 columns: relative L2 errors", **line)
+
+
+# ---------------------------------------------------------------------------
+# the measurement probes
+# ---------------------------------------------------------------------------
+def phase_probes(torch, dev):
+    """The three probe entry points as a user runs them (counters reset just
+    before, read just after; every wrapper's count equal to what the probes'
+    loops launch), then each probe kernel against its plain version at the
+    probes' shapes."""
+    from fpn_mt_image_captioning_torch.ops import probes as pr
+    from fpn_mt_image_captioning_torch.scripts import (probe_grid_cell, probe_launch_overhead,
+                                                       probe_pallas_overhead)
+
+    scripts = (probe_launch_overhead, probe_pallas_overhead, probe_grid_cell)
+    reset_all_counts()
+    results = [m.measure(dev) for m in scripts]
+    launch, chains, grid = results
+    expected = {}
+    for m, r in zip(scripts, results):
+        for k, n in m.expected_launches(r).items():
+            expected[k] = expected.get(k, 0) + n
+    wrong = {k.__name__: (k.launches, expected.get(k, 0)) for k in all_kernels()
+             if k.launches != expected.get(k, 0)}
+    if wrong or not all(k.launches for k in pr.KERNELS):
+        raise SmokeFailure(f"probe launch counts (counted, expected): {wrong}")
+    counts = {k.__name__: k.launches for k in pr.KERNELS}
+    say("probe_launch_overhead", **launch)
+    slopes = {}
+    for v in ("C decoder-shaped", "D compute-overlap", "E no-oh"):
+        eager, graph = launch[v], launch[f"{v} graph"]
+        slopes[v] = dict(
+            launches_per_step=eager["launches_per_link"],
+            eager_host_us_per_step=eager["host_us_per_link"],
+            graph_host_us_per_step=graph["host_us_per_link"],
+            graph_saves_host_us_per_step=eager["host_us_per_link"] - graph["host_us_per_link"],
+            eager_device_us_per_step=eager.get("device_us_per_link"),
+            graph_device_us_per_step=graph.get("device_us_per_link"))
+    say("probe_slopes", **slopes)
+    say("probe_pallas_overhead", **chains)
+    say("probe_grid_cell", **grid)
+
+    g = torch.Generator(dev).manual_seed(4321)
+    table, line = {}, {}
+    x = torch.randn(256, 256, generator=g, device=dev)
+    for k in (pr.add_one, pr.add_one_grid7):
+        if not torch.equal(k(x), pr.add_one_reference(x)):
+            raise SmokeFailure(f"{k.__name__}: differs from x + 1")
+        ms, wall = bench(lambda: k(x))
+        plain, _ = bench(lambda: pr.add_one_reference(x))
+        lib, _ = bench(lambda: torch.add(x, 1.0))
+        table[k.__name__] = dict(shape="(256, 256) float32", max_abs_err=0.0, ms=ms,
+                                 plain_ms=plain, library_ms=lib,
+                                 bound=bound(2 * x.numel() * 4, x.numel(), "float32"))
+        line[k.__name__] = dict(ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib)
+
+    # the decode step on the trivial build: its result must be the contract;
+    # each kind alone at the step's shapes (the empty bodies write nothing, so
+    # their plain versions only allocate what the wrapper allocates)
+    plo, td = probe_launch_overhead, pr.TRIVIAL_DECODER
+    s = plo.step_setup(dev)
+    s["scores"].normal_(generator=g)
+    bk, d, beam, bf16 = plo.B_ITEMS * plo.BEAM, plo.D, plo.BEAM, torch.bfloat16
+    want = pr.probe_step_reference(s["scores"], beam)
+    if not torch.equal(pr.probe_step(s), want):
+        raise SmokeFailure("probe_step: top-k scores differ from the running scores")
+    p, xs, y32 = s["packed"]["layers"][0], s["x"], torch.zeros(bk, d, device=dev)
+    cache, logits = s["cache"], torch.zeros(bk, plo.V, device=dev)
+    qkv = torch.zeros(bk, 3 * d, dtype=bf16, device=dev)
+    empty = lambda *shape, dt=bf16: (lambda: torch.empty(shape, dtype=dt, device=dev))
+    kinds = {
+        td.decoder_linear: ((xs, p["wqkv"], p["bqkv"]), empty(bk, 3 * d),
+                            f"QKV, M={bk} K={d} N={3 * d}"),
+        td.decoder_add_layernorm: ((y32, xs, *p["ln"][:2], bf16), empty(bk, d),
+                                   f"rows={bk} d={d}"),
+        td.decoder_self_attention: ((qkv, cache["k_self"], cache["v_self"], 0, 0, s["src_t"],
+                                     beam, plo.H), empty(bk, d), f"BK={bk} H={plo.H} pos=0"),
+        td.decoder_cross_attention: ((xs, cache["kv_cross"], 0, beam, plo.H), empty(bk, d),
+                                     f"BK={bk} Lenc={plo.LENC}"),
+        td.decoder_logsoftmax_topk: ((logits, s["scores"], s["finished"], beam),
+                                     lambda: pr.probe_step_reference(s["scores"], beam),
+                                     f"BK={bk} V={plo.V} topk={beam}"),
+    }
+    for k, (a, plain_fn, shape) in kinds.items():
+        lib, nbytes = None, 0
+        if k is td.decoder_logsoftmax_topk:
+            if not torch.equal(k(*a)[0], want):
+                raise SmokeFailure(f"{k.__name__}: differs from the running scores")
+            sc = s["scores"]
+            lib, _ = bench(lambda: sc.expand(-1, beam).contiguous())
+            nbytes = bk * 4 + bk * beam * 4
+        ms, wall = bench(lambda: k(*a))
+        plain, _ = bench(plain_fn, kernels=k is td.decoder_logsoftmax_topk)
+        body = ("float32, writes each row's running score (library: expand of the scores)"
+                if lib is not None else "bf16, empty body, held through the step's result")
+        table[k.__name__] = dict(
+            shape=f"{shape}, {body}; fused_decoder.cu built with -DFD_TRIVIAL_BODIES",
+            max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
+            bound=bound(nbytes, 0, "float32"))
+        line[k.__name__] = dict(ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib)
+
+    pgc = probe_grid_cell
+    b, hp, wp, c, rows, tiles = pgc.B, pgc.HP, pgc.WP, pgc.C, pgc.ROWS, pgc.N_TILES
+    xg = torch.randn(b, hp, wp, c, generator=g, device=dev).to(bf16)
+    for k, layout in ((pr.slab_copy_4d, "A"), (pr.slab_copy_3d, "B"), (pr.slab_copy_lane128, "C"),
+                      (pr.slab_copy_flat, "D"), (pr.slab_copy_flat_loads, "D"),
+                      (pr.slab_copy_flat_cp_async, "D")):
+        got, want = k(xg, rows, tiles), pr.slab_copy_reference(xg, layout, rows, tiles)
+        if got.shape != want.shape or not torch.equal(pr.slab_rows(got, xg.shape, rows, tiles),
+                                                      pr.slab_rows(want, xg.shape, rows, tiles)):
+            raise SmokeFailure(f"{k.__name__}: differs from 2·x on the slab rows")
+        del got, want
+        ms, wall = bench(lambda: k(xg, rows, tiles), iters=10, reps=3)
+        plain, _ = bench(lambda: pr.slab_copy_reference(xg, layout, rows, tiles), iters=10, reps=3)
+        lib = None if layout == "C" else bench(
+            lambda: xg[:, 1:1 + rows * tiles].mul(2), iters=10, reps=3)[0]
+        c_out = pr.LANES if layout == "C" else c
+        nbytes = b * rows * tiles * wp * (c + c_out) * 2
+        table[k.__name__] = dict(
+            shape=f"x ({b}, {hp}, {wp}, {c}) bf16, {tiles} slabs of {rows} rows an item, "
+                  f"layout {layout}" + (" (library: mul of the rows)" if lib is not None else ""),
+            max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=lib,
+            bound=bound(nbytes, b * rows * tiles * wp * c_out, "bfloat16"))
+        line[k.__name__] = dict(ms=ms, wall_ms=wall, plain_ms=plain, library_ms=lib,
+                                gb_per_s=nbytes / ms / 1e6)
+    say("probe_kernels", **line)
+    return table, counts
 
 
 def make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **cfg_kw):
@@ -892,7 +1032,7 @@ def main() -> int:
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     t0 = time.perf_counter()
-    libs = _build.build()   # one nvcc per source, all started together
+    libs = _build.build()   # one nvcc per library, all started together
     nvcc_s = time.perf_counter() - t0
     if not native_loader.available():
         raise SmokeFailure("the native image loader did not build (g++ and zlib)")
@@ -902,6 +1042,8 @@ def main() -> int:
     table = phase_kernels(fd, torch, dev)
     table["fused_ir_block"] = phase_backbone_kernels(fb, torch, dev)
     phase_backbone_whole(fb, torch, dev)
+    probe_table, probe_counts = phase_probes(torch, dev)
+    table.update(probe_table)
 
     tokenizer = synthetic_tokenizer(Tokenizer, REFERENCE_FILTERS)
     build = lambda **kw: make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **kw)
@@ -921,15 +1063,21 @@ def main() -> int:
         offline, img_dir = phase_cli(fd, torch, fused, workdir)
         phase_server(torch, fused, offline, img_dir)
 
+    counts.update(probe_counts)
     kernels = []
     for k in all_kernels():
         row = table[k.__name__]
         bound_ms, bound_by = row.pop("bound")
-        is_fd = k in fd.KERNELS
-        kernels.append({"name": k.__name__, "route": "cuda",
-                        "source": SOURCE if is_fd else BACKBONE_SOURCE,
-                        "replaces": TPU_KERNEL if is_fd else BACKBONE_TPU_KERNEL,
-                        "launches": counts[k.__name__], **row,
+        if k in fd.KERNELS:
+            source, replaces = SOURCE, TPU_KERNEL
+        elif k in fb.KERNELS:
+            source, replaces = BACKBONE_SOURCE, BACKBONE_TPU_KERNEL
+        else:
+            source, replaces = PROBE_SOURCE, PROBE_TPU_KERNELS[k.__name__]
+            if k.__name__.endswith("_trivial"):   # fused_decoder.cu, -DFD_TRIVIAL_BODIES
+                source = SOURCE
+        kernels.append({"name": k.__name__, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": counts[k.__name__], **row,
                         "bound_ms": bound_ms, "bound_by": bound_by})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,13 @@
 // Bounds at the flagship decode shapes (B*beam = BK = 512, d = 512, H = 8,
 // dff = 2048, N = 6, V = 2000, bf16 weights; H100 SXM: 3.35 TB/s, 989 TFLOP/s
 // bf16) are given per kernel below.
+//
+// Built a second time with -DFD_TRIVIAL_BODIES (library fused_decoder_trivial)
+// for the launch-cost probe (scripts/probe_launch_overhead.py): the same entry
+// points launch every kernel with the same arguments, grid, block and dynamic
+// shared memory, and each kernel returns at once, except that
+// logsoftmax_topk writes out_s[row, j] = scores[row] (its ids stay unwritten),
+// so a step's result shows that its last launch ran.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -26,6 +33,12 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+
+#ifdef FD_TRIVIAL_BODIES
+constexpr bool kTrivial = true;
+#else
+constexpr bool kTrivial = false;
+#endif
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -136,6 +149,7 @@ template <typename T, typename TO>
 __global__ void __launch_bounds__(256) linear_kernel(
     const T* __restrict__ X, const T* __restrict__ W, const float* __restrict__ bias,
     TO* __restrict__ Y, int M, int N, int K, int act) {
+  if (kTrivial) return;
   __shared__ float As[LBK][LBM + 4];
   __shared__ float Bs[LBK][LBN];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -190,6 +204,7 @@ template <typename TO>
 __global__ void __launch_bounds__(128) linear_tc_kernel(
     const bf16* __restrict__ X, const bf16* __restrict__ W, const float* __restrict__ bias,
     TO* __restrict__ Y, int M, int N, int K, int act) {
+  if (kTrivial) return;
   using namespace nvcuda;
   // row-major tiles, rows padded by 8 elements (16 B) against bank conflicts;
   // every fragment pointer below stays 32-byte aligned
@@ -275,6 +290,7 @@ __global__ void __launch_bounds__(128) add_layernorm_kernel(
     const float* __restrict__ y, const R* __restrict__ r, const float* __restrict__ gamma,
     const float* __restrict__ beta, float* __restrict__ out_f, T* __restrict__ out_t,
     int d, float eps) {
+  if (kTrivial) return;
   extern __shared__ float row[];
   const size_t off = (size_t)blockIdx.x * d;
   float s = 0.f;
@@ -342,6 +358,7 @@ __global__ void self_attention_kernel(
     const T* __restrict__ qkv, T* __restrict__ k_layer, T* __restrict__ v_layer,
     const int* __restrict__ src_t, T* __restrict__ ctx, int BK, int d, int H, int beam,
     int pos, float scale) {
+  if (kTrivial) return;
   extern __shared__ float lg_all[];
   const int row = blockIdx.x, h = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dh = d / H, n = pos + 1;
@@ -416,6 +433,7 @@ template <typename T>
 __global__ void cross_attention_kernel(
     const T* __restrict__ q2, const T* __restrict__ kv_layer, T* __restrict__ ctx,
     int B, int Lenc, int d, int H, int beam, float scale) {
+  if (kTrivial) return;
   extern __shared__ float lg_all[];
   const int row = blockIdx.x, h = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dh = d / H, item = row / beam;
@@ -475,6 +493,10 @@ __global__ void __launch_bounds__(256) logsoftmax_topk_kernel(
     int V, int topk) {
   extern __shared__ float tot[];
   const int row = blockIdx.x;
+  if (kTrivial) {
+    for (int j = threadIdx.x; j < topk; j += blockDim.x) out_s[(size_t)row * topk + j] = scores[row];
+    return;
+  }
   const float* lg = logits + (size_t)row * V;
   float m = -INFINITY;
   for (int c = threadIdx.x; c < V; c += blockDim.x) m = fmaxf(m, lg[c]);

@@ -74,10 +74,15 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
 class SameConv2d(nn.Conv2d):
     """NCHW ``nn.Conv2d`` with TF/XLA "SAME" padding. Symmetric pads go to the
     convolution itself; an asymmetric one (stride 2) is an explicit
-    ``F.pad``, since ``padding=1`` would shift every stride-2 output."""
+    ``F.pad``, since ``padding=1`` would shift every stride-2 output. An
+    empty spatial extent gives the empty output, as Flax's ``nn.Conv`` does
+    (the smallest pyramid views of an input below 256²)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        if x.shape[2] == 0 or x.shape[3] == 0:
+            return x.new_empty((x.shape[0], self.out_channels,
+                                -(-x.shape[2] // sh), -(-x.shape[3] // sw)))
         ph, pw = _same_pads(x.shape[2], kh, sh), _same_pads(x.shape[3], kw, sw)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(x, self.weight, self.bias, self.stride,
@@ -98,7 +103,11 @@ def upsample_like(source: torch.Tensor, target_hw: tuple[int, int]) -> torch.Ten
 
 
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
-    """2×2/stride-2 max pool, VALID padding (Keras MaxPooling2D default)."""
+    """2×2/stride-2 max pool, VALID padding (Keras MaxPooling2D default). An
+    extent below 2 gives the empty (N, C, H//2, W//2), as Flax's
+    ``nn.max_pool`` does; ``F.max_pool2d`` refuses it."""
+    if x.shape[2] < 2 or x.shape[3] < 2:
+        return x.new_empty((*x.shape[:2], x.shape[2] // 2, x.shape[3] // 2))
     return F.max_pool2d(x, kernel_size=2, stride=2)
 
 

@@ -35,8 +35,7 @@ import torch.nn.functional as F
 
 from ..models.backbones.mobilenet_v2 import _BLOCK_CONFIG, _C3_GROUP, _C4_GROUP
 from ..models.layers import normalize_images
-from ._build import load_library
-from .fused_decoder import _MAX_SMEM, _check, _stream
+from ._build import MAX_SMEM, check, launched, load_library, on_cpu, stream
 
 __all__ = [
     "KERNELS", "pack_backbone_weights", "fused_ir_block", "fused_ir_block_reference",
@@ -166,7 +165,7 @@ def tile_plan(cin: int, cout: int, stride: int) -> tuple[int, int]:
     for th in (8, 4, 2, 1):
         p = ((th - 1) * stride + 3) * ((TILE_W - 1) * stride + 3)
         floats = p * cin4 + cin4 * CHUNK + p * CHUNK + th * TILE_W * CHUNK + CHUNK * 32 * nj
-        if 4 * floats <= _MAX_SMEM:
+        if 4 * floats <= MAX_SMEM:
             return th, nj
     raise ValueError(f"fused_ir_block: a block with {cin} input channels does not fit "
                      "in shared memory")
@@ -182,13 +181,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _error_string(rc: int) -> bytes:
+    return _lib().fb_error_string(rc)
+
+
 def fused_ir_block(x: torch.Tensor, blk: dict, *, stride: int, residual: bool) -> torch.Tensor:
     """One inverted-residual block (see ``fused_ir_block_reference``): the
     hand-written kernel on a CUDA tensor, the plain version on a CPU one."""
-    if x.is_cpu:
+    if on_cpu(x):
         return fused_ir_block_reference(x, blk, stride=stride, residual=residual)
-    if not x.is_cuda:
-        raise ValueError(f"fused_ir_block runs on CUDA or CPU tensors, not {x.device}")
     _check_extents(x, stride)
     if stride not in (1, 2):
         raise ValueError(f"fused_ir_block: stride {stride}")
@@ -199,17 +200,17 @@ def fused_ir_block(x: torch.Tensor, blk: dict, *, stride: int, residual: bool) -
     cexp = blk["w_dw"].shape[1]
     cout = blk["w_proj"].shape[1]
     dev, f32 = x.get_device(), torch.float32
-    _check("x", x, (b, h, w, cin), x.dtype, dev)
+    check("x", x, (b, h, w, cin), x.dtype, dev)
     if has_expand:
-        _check("w_exp", blk["w_exp"], (cin, cexp), x.dtype, dev)
-        _check("b_exp", blk["b_exp"], (cexp,), f32, dev)
+        check("w_exp", blk["w_exp"], (cin, cexp), x.dtype, dev)
+        check("b_exp", blk["b_exp"], (cexp,), f32, dev)
     elif cexp != cin:
         raise ValueError(f"fused_ir_block: no expand, but {cin} input and {cexp} depthwise "
                          "channels")
-    _check("w_dw", blk["w_dw"], (9, cexp), f32, dev)
-    _check("b_dw", blk["b_dw"], (cexp,), f32, dev)
-    _check("w_proj", blk["w_proj"], (cexp, cout), x.dtype, dev)
-    _check("b_proj", blk["b_proj"], (cout,), f32, dev)
+    check("w_dw", blk["w_dw"], (9, cexp), f32, dev)
+    check("b_dw", blk["b_dw"], (cexp,), f32, dev)
+    check("w_proj", blk["w_proj"], (cexp, cout), x.dtype, dev)
+    check("b_proj", blk["b_proj"], (cout,), f32, dev)
     if residual and (stride != 1 or cin != cout):
         raise ValueError("fused_ir_block: a residual needs stride 1 and Cin == Cout")
     th, nj = tile_plan(cin, cout, stride)
@@ -219,11 +220,8 @@ def fused_ir_block(x: torch.Tensor, blk: dict, *, stride: int, residual: bool) -
     rc = _lib().fb_ir_block(
         x.data_ptr(), ptr("w_exp"), ptr("b_exp"), ptr("w_dw"), ptr("b_dw"), ptr("w_proj"),
         ptr("b_proj"), y.data_ptr(), b, h, w, cin, cexp, cout, stride, int(residual),
-        th, nj, _DTYPE_CODE[x.dtype], _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"fused_ir_block: CUDA error {rc} "
-                           f"({_lib().fb_error_string(rc).decode()})")
-    fused_ir_block.launches += 1
+        th, nj, _DTYPE_CODE[x.dtype], stream(dev))
+    launched(fused_ir_block, rc, _error_string)
     return y
 
 

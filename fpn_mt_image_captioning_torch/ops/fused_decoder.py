@@ -37,7 +37,7 @@ from types import SimpleNamespace
 import torch
 import torch.nn.functional as F
 
-from ._build import load_library
+from ._build import MAX_SMEM, check, launched, load_library, on_cpu, stream
 
 __all__ = [
     "FUSED_ACTIVATIONS", "KERNELS", "round_up", "pack_decoder_weights",
@@ -47,7 +47,7 @@ __all__ = [
     "decoder_self_attention", "decoder_self_attention_reference",
     "decoder_cross_attention", "decoder_cross_attention_reference",
     "decoder_logsoftmax_topk", "decoder_logsoftmax_topk_reference",
-    "reset_launch_counts",
+    "reset_launch_counts", "LIBRARY", "KERNEL_OPS", "PLAIN_OPS", "decode_step_with",
 ]
 
 # FFN activations the kernels implement (all of models/layers.py)
@@ -221,9 +221,12 @@ def decoder_logsoftmax_topk_reference(logits, scores, finished, topk: int):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+LIBRARY = "fused_decoder"   # the build of csrc/fused_decoder.cu the wrappers launch
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = load_library("fused_decoder")
+    lib = load_library(LIBRARY)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "fd_linear": [P, P, P, P, I, I, I, I, I, I, P],
@@ -239,62 +242,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    """True for a CPU tensor (take the plain version); False for a CUDA
-    tensor (launch the kernel); raises for any other device."""
-    if t.is_cpu:
-        return True
-    if not t.is_cuda:
-        raise ValueError(f"fused decoder kernels run on CUDA or CPU tensors, not {t.device}")
-    return False
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device: int) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    CUDA device ``device``. (Runs on every launch: its fast path reads no
-    ``torch.device`` object, which costs more than the rest together.)"""
-    if not (t.dtype == dtype and t.shape == shape and t.get_device() == device
-            and t.is_contiguous()):
-        raise ValueError(
-            f"{name}: expected a contiguous {dtype} tensor of shape {tuple(shape)} on "
-            f"cuda:{device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            f"{'' if t.is_contiguous() else ', not contiguous'}")
-
-
 def _compute_dtype(name: str, t: torch.Tensor) -> int:
     if t.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: kernels take float32 or bfloat16, not {t.dtype}")
     return _DTYPE_CODE[t.dtype]
 
 
-def _stream(device: int) -> int:
-    """PyTorch's current stream on CUDA device ``device`` as a raw handle
-    (the call Triton's launcher uses; no Stream object is built per launch)."""
-    return torch._C._cuda_getCurrentRawStream(device)
-
-
-def _launched(wrapper, rc: int) -> None:
-    if rc != 0:
-        msg = _lib().fd_error_string(rc).decode()
-        raise RuntimeError(f"{wrapper.__name__}: CUDA error {rc} ({msg})")
-    wrapper.launches += 1
+def _error_string(rc: int) -> bytes:
+    return _lib().fd_error_string(rc)
 
 
 def decoder_linear(x, w, b, act: str = "none", out_f32: bool = False):
     """Kernel (a): ``act(x·w + b)`` — x (M, K), w (K, N) in x's dtype, b (N,)
     float32; result in x's dtype, or float32 with ``out_f32``."""
-    if _on_cpu(x):
+    if on_cpu(x):
         return decoder_linear_reference(x, w, b, act, out_f32)
     m, k = x.shape
     n = w.shape[1]
     code, dev = _compute_dtype("decoder_linear", x), x.get_device()
-    _check("x", x, (m, k), x.dtype, dev)
-    _check("w", w, (k, n), x.dtype, dev)
-    _check("b", b, (n,), torch.float32, dev)
+    check("x", x, (m, k), x.dtype, dev)
+    check("w", w, (k, n), x.dtype, dev)
+    check("b", b, (n,), torch.float32, dev)
     y = x.new_empty((m, n), dtype=torch.float32 if out_f32 else x.dtype)
     rc = _lib().fd_linear(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k,
-                          code, int(out_f32), _ACT_CODE[act], _stream(dev))
-    _launched(decoder_linear, rc)
+                          code, int(out_f32), _ACT_CODE[act], stream(dev))
+    launched(decoder_linear, rc, _error_string)
     return y
 
 
@@ -302,24 +274,24 @@ def decoder_add_layernorm(y, r, gamma, beta, out_dtype):
     """Kernel (b): ``LN(y + r)`` — y (rows, d) float32, r (rows, d) in
     ``out_dtype`` or float32, gamma/beta (d,) float32. Returns the float32
     result and its cast to ``out_dtype`` (the same tensor at float32)."""
-    if _on_cpu(y):
+    if on_cpu(y):
         return decoder_add_layernorm_reference(y, r, gamma, beta, out_dtype)
     rows, d = y.shape
     code = _DTYPE_CODE.get(out_dtype)
     if code is None or r.dtype not in (out_dtype, torch.float32):
         raise TypeError(f"decoder_add_layernorm: unsupported dtypes r={r.dtype}, out={out_dtype}")
     dev = y.get_device()
-    _check("y", y, (rows, d), torch.float32, dev)
-    _check("r", r, (rows, d), r.dtype, dev)
-    _check("gamma", gamma, (d,), torch.float32, dev)
-    _check("beta", beta, (d,), torch.float32, dev)
+    check("y", y, (rows, d), torch.float32, dev)
+    check("r", r, (rows, d), r.dtype, dev)
+    check("gamma", gamma, (d,), torch.float32, dev)
+    check("beta", beta, (d,), torch.float32, dev)
     out_t = y.new_empty((rows, d), dtype=out_dtype)
     out_f = None if code == 0 else y.new_empty((rows, d))
     rc = _lib().fd_add_layernorm(
         y.data_ptr(), r.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         None if out_f is None else out_f.data_ptr(), out_t.data_ptr(), rows, d, code,
-        int(r.dtype == torch.float32), LN_EPS, _stream(dev))
-    _launched(decoder_add_layernorm, rc)
+        int(r.dtype == torch.float32), LN_EPS, stream(dev))
+    launched(decoder_add_layernorm, rc, _error_string)
     return (out_t if out_f is None else out_f), out_t
 
 
@@ -335,7 +307,7 @@ def decoder_self_attention(qkv, k_self, v_self, layer: int, pos: int, src_t, bea
     qkv (BK, 3d); k_self/v_self (N, Lpad, BK, d), row ``pos`` of ``layer``
     written IN PLACE; src_t (Lpad, BK) int32 group-local beam indices, which
     ``beam_search`` keeps in [0, beam). Returns the context (BK, d)."""
-    if _on_cpu(qkv):
+    if on_cpu(qkv):
         return decoder_self_attention_reference(
             qkv, k_self, v_self, layer, pos, src_t, beam, num_heads)
     bk, d3 = qkv.shape
@@ -345,23 +317,23 @@ def decoder_self_attention(qkv, k_self, v_self, layer: int, pos: int, src_t, bea
     _check_heads(d, num_heads)
     if not (0 <= layer < n and 0 <= pos < lpad and bk % beam == 0):
         raise ValueError(f"bad layer/pos/beam: {layer}/{pos}/{beam} for cache {tuple(k_self.shape)}")
-    _check("qkv", qkv, (bk, 3 * d), qkv.dtype, dev)
-    _check("k_self", k_self, (n, lpad, bk, d), qkv.dtype, dev)
-    _check("v_self", v_self, (n, lpad, bk, d), qkv.dtype, dev)
-    _check("src_t", src_t, (lpad, bk), torch.int32, dev)
+    check("qkv", qkv, (bk, 3 * d), qkv.dtype, dev)
+    check("k_self", k_self, (n, lpad, bk, d), qkv.dtype, dev)
+    check("v_self", v_self, (n, lpad, bk, d), qkv.dtype, dev)
+    check("src_t", src_t, (lpad, bk), torch.int32, dev)
     ctx = qkv.new_empty((bk, d))
     rc = _lib().fd_self_attention(
         qkv.data_ptr(), k_self[layer].data_ptr(), v_self[layer].data_ptr(), src_t.data_ptr(),
         ctx.data_ptr(), bk, d, num_heads, beam, pos, 1.0 / math.sqrt(d // num_heads), code,
-        _stream(dev))
-    _launched(decoder_self_attention, rc)
+        stream(dev))
+    launched(decoder_self_attention, rc, _error_string)
     return ctx
 
 
 def decoder_cross_attention(q, kv_cross, layer: int, beam: int, num_heads: int):
     """Kernel (d): cross-attention of q (BK, d) over kv_cross[layer]
     (Lenc, B, 2d), row r reading batch item r // beam. Returns (BK, d)."""
-    if _on_cpu(q):
+    if on_cpu(q):
         return decoder_cross_attention_reference(q, kv_cross, layer, beam, num_heads)
     bk, d = q.shape
     n, lenc, b = kv_cross.shape[:3]
@@ -370,38 +342,35 @@ def decoder_cross_attention(q, kv_cross, layer: int, beam: int, num_heads: int):
     if not (0 <= layer < n and bk == b * beam):
         raise ValueError(f"bad layer/beam: {layer}/{beam} for {bk} rows and cross K/V "
                          f"{tuple(kv_cross.shape)}")
-    _check("q", q, (bk, d), q.dtype, dev)
-    _check("kv_cross", kv_cross, (n, lenc, b, 2 * d), q.dtype, dev)
+    check("q", q, (bk, d), q.dtype, dev)
+    check("kv_cross", kv_cross, (n, lenc, b, 2 * d), q.dtype, dev)
     ctx = q.new_empty((bk, d))
     rc = _lib().fd_cross_attention(
         q.data_ptr(), kv_cross[layer].data_ptr(), ctx.data_ptr(), bk, b, lenc, d, num_heads,
-        beam, 1.0 / math.sqrt(d // num_heads), code, _stream(dev))
-    _launched(decoder_cross_attention, rc)
+        beam, 1.0 / math.sqrt(d // num_heads), code, stream(dev))
+    launched(decoder_cross_attention, rc, _error_string)
     return ctx
-
-
-_MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
 def decoder_logsoftmax_topk(logits, scores, finished, topk: int):
     """Kernel (e): logits (BK, V) float32, scores/finished (BK, 1) float32 →
     top ``topk`` (scores (BK, topk) float32, ids (BK, topk) int32), see
     ``decoder_logsoftmax_topk_reference``."""
-    if _on_cpu(logits):
+    if on_cpu(logits):
         return decoder_logsoftmax_topk_reference(logits, scores, finished, topk)
     bk, v = logits.shape
-    if not 0 < topk <= v or v * 4 > _MAX_SMEM:
+    if not 0 < topk <= v or v * 4 > MAX_SMEM:
         raise ValueError(f"decoder_logsoftmax_topk: topk={topk}, V={v} unsupported")
     scores, finished, dev = scores.reshape(-1), finished.reshape(-1), logits.get_device()
-    _check("logits", logits, (bk, v), torch.float32, dev)
-    _check("scores", scores, (bk,), torch.float32, dev)
-    _check("finished", finished, (bk,), torch.float32, dev)
+    check("logits", logits, (bk, v), torch.float32, dev)
+    check("scores", scores, (bk,), torch.float32, dev)
+    check("finished", finished, (bk,), torch.float32, dev)
     out_s = logits.new_empty((bk, topk))
     out_i = logits.new_empty((bk, topk), dtype=torch.int32)
     rc = _lib().fd_logsoftmax_topk(
         logits.data_ptr(), scores.data_ptr(), finished.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), bk, v, topk, _stream(dev))
-    _launched(decoder_logsoftmax_topk, rc)
+        out_i.data_ptr(), bk, v, topk, stream(dev))
+    launched(decoder_logsoftmax_topk, rc, _error_string)
     return out_s, out_i
 
 
@@ -416,12 +385,12 @@ def reset_launch_counts() -> None:
 
 reset_launch_counts()
 
-_KERNEL_OPS = SimpleNamespace(
+KERNEL_OPS = SimpleNamespace(
     linear=decoder_linear, add_layernorm=decoder_add_layernorm,
     self_attention=decoder_self_attention, cross_attention=decoder_cross_attention,
     logsoftmax_topk=decoder_logsoftmax_topk,
 )
-_PLAIN_OPS = SimpleNamespace(
+PLAIN_OPS = SimpleNamespace(
     linear=decoder_linear_reference, add_layernorm=decoder_add_layernorm_reference,
     self_attention=decoder_self_attention_reference,
     cross_attention=decoder_cross_attention_reference,
@@ -432,8 +401,10 @@ _PLAIN_OPS = SimpleNamespace(
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
-def _decode_step(ops, packed, cache, x_emb, src_t, pos, scores, finished, *,
-                 num_layers, beam, num_heads, topk, activation):
+def decode_step_with(ops, packed, cache, x_emb, src_t, pos, scores, finished, *,
+                     num_layers, beam, num_heads, topk, activation):
+    """The step's launches in order through ``ops`` (``KERNEL_OPS``,
+    ``PLAIN_OPS``, or a probe's own five); returns ``(top_s, top_ids)``."""
     if activation not in FUSED_ACTIVATIONS:
         raise ValueError(f"fused decoder: unsupported activation {activation!r}")
     if num_layers != len(packed["layers"]):
@@ -464,8 +435,8 @@ def fused_decode_step_reference(packed, cache, x_emb, src_t, pos: int, scores, f
                                 topk: int | None = None, activation: str = "leaky_relu"):
     """The whole step from the plain versions (same arguments and results as
     ``fused_decode_step``)."""
-    top_s, top_i = _decode_step(
-        _PLAIN_OPS, packed, cache, x_emb, src_t, pos, scores, finished,
+    top_s, top_i = decode_step_with(
+        PLAIN_OPS, packed, cache, x_emb, src_t, pos, scores, finished,
         num_layers=num_layers, beam=beam, num_heads=num_heads, topk=topk,
         activation=activation)
     return top_s, top_i, cache
@@ -489,12 +460,12 @@ def fused_decode_step(packed, cache, x_emb, src_t, pos: int, scores, finished, *
     position's K/V come from this step's projection, not from the cache;
     ``beam_search`` guarantees it. CUDA tensors run the hand-written kernels,
     CPU tensors ``fused_decode_step_reference``."""
-    if _on_cpu(x_emb):
+    if on_cpu(x_emb):
         return fused_decode_step_reference(
             packed, cache, x_emb, src_t, pos, scores, finished, num_layers=num_layers,
             beam=beam, num_heads=num_heads, topk=topk, activation=activation)
-    top_s, top_i = _decode_step(
-        _KERNEL_OPS, packed, cache, x_emb, src_t, pos, scores, finished,
+    top_s, top_i = decode_step_with(
+        KERNEL_OPS, packed, cache, x_emb, src_t, pos, scores, finished,
         num_layers=num_layers, beam=beam, num_heads=num_heads, topk=topk,
         activation=activation)
     return top_s, top_i, cache

@@ -212,3 +212,111 @@ def test_fused_ir_block_rejects_bad_inputs(dev):
                           residual=False)
     with pytest.raises(ValueError, match="residual"):
         fb.fused_ir_block(rand(g, 1, 8, 8, 16, dev=dev), blk, stride=1, residual=True)
+
+
+# ---------------------------------------------------------------------------
+# the measurement probes: x + 1 and the slab copies (csrc/probes.cu), and the
+# decode step on fused_decoder.cu built with empty kernel bodies, each exactly
+# equal to its plain version
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel", ["add_one", "add_one_grid7"])
+@pytest.mark.parametrize("shape", [(1,), (1000,), (256, 256), (3, 517)])
+def test_probe_add_one(dev, kernel, shape):
+    from fpn_mt_image_captioning_torch.ops import probes as pr
+
+    fn = getattr(pr, kernel)
+    x = rand(torch.Generator().manual_seed(len(shape)), *shape, dev=dev)
+    before = fn.launches
+    got = fn(x)
+    assert fn.launches == before + 1
+    assert torch.equal(got, pr.add_one_reference(x))
+
+
+def _probe_step_setup(dev, b_items, beam, with_oh=True, dots=0, num_layers=2):
+    from fpn_mt_image_captioning_torch.ops import probes as pr
+
+    s = pr.step_setup(b_items=b_items, beam=beam, d=64, num_heads=4, dff=128, vocab=300,
+                      num_layers=num_layers, lpad=8, lenc=4, with_oh=with_oh, tile=16,
+                      compute_dots=dots, device=dev)
+    s["scores"].copy_(rand(torch.Generator().manual_seed(b_items * beam), b_items * beam, 1,
+                           dev=dev))
+    return pr, s
+
+
+def _step_counts(pr):
+    return [k.launches for k in pr.TRIVIAL_DECODER.KERNELS]
+
+
+@pytest.mark.parametrize("b_items,beam,with_oh,dots", [(1, 8, True, 0), (3, 2, False, 2),
+                                                       (5, 3, True, 1)])
+def test_probe_step(dev, b_items, beam, with_oh, dots):
+    """The decode step on the trivial build (B = 1 among the cases): each
+    kind launched as often as in the real step, the real linears on top,
+    the top-k scores equal to the contract."""
+    pr, s = _probe_step_setup(dev, b_items, beam, with_oh, dots)
+    before, lin = _step_counts(pr), fd.decoder_linear.launches
+    tops = pr.probe_step(s)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_step_counts(pr), before)] == [13, 6, 2, 2, 1]
+    assert fd.decoder_linear.launches - lin == 2 * dots
+    assert torch.equal(tops, pr.probe_step_reference(s["scores"], beam))
+
+
+def test_probe_step_cuda_graph(dev):
+    """One step captured in a CUDA graph: the counters count the capture
+    once and no replay; every replay rewrites tops from the current scores."""
+    from fpn_mt_image_captioning_torch.scripts import probe_launch_overhead as plo
+
+    pr, s = _probe_step_setup(dev, 2, 4)
+    before = _step_counts(pr)
+    graph, tops = plo.capture_step(s)
+    after_capture = _step_counts(pr)
+    # the capture's own launches: once for the warm-up step, once for the capture
+    assert [a - b for a, b in zip(after_capture, before)] == [26, 12, 4, 4, 2]
+    for seed in range(3):
+        s["scores"].copy_(rand(torch.Generator().manual_seed(seed), 8, 1, dev=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(tops, pr.probe_step_reference(s["scores"], 4))
+    assert _step_counts(pr) == after_capture
+
+
+# (B, Hp, Wp, C, rows, n_tiles): a slab the chunks do not divide with Wp > 256
+# (two boxes a row), B = 1, narrow channels, and a flat slab of several boxes
+SLAB_CASES = [(1, 23, 300, 32, 7, 3), (2, 10, 16, 8, 4, 2), (3, 66, 40, 32, 16, 4),
+              (2, 258, 272, 32, 64, 1)]
+SLAB_WRAPPERS = [("slab_copy_4d", "A"), ("slab_copy_3d", "B"), ("slab_copy_lane128", "C"),
+                 ("slab_copy_flat", "D"), ("slab_copy_flat_loads", "D"),
+                 ("slab_copy_flat_cp_async", "D")]
+
+
+@pytest.mark.parametrize("wrapper,layout", SLAB_WRAPPERS)
+@pytest.mark.parametrize("b,hp,wp,c,rows,n_tiles", SLAB_CASES)
+def test_probe_slab_copy(dev, wrapper, layout, b, hp, wp, c, rows, n_tiles):
+    from fpn_mt_image_captioning_torch.ops import probes as pr
+
+    fn = getattr(pr, wrapper)
+    x = rand(torch.Generator().manual_seed(hp + wp), b, hp, wp, c, dtype=torch.bfloat16, dev=dev)
+    before = fn.launches
+    got = fn(x, rows, n_tiles)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = pr.slab_copy_reference(x, layout, rows, n_tiles)
+    assert got.shape == want.shape
+    assert torch.equal(pr.slab_rows(got, x.shape, rows, n_tiles),
+                       pr.slab_rows(want, x.shape, rows, n_tiles))
+
+
+def test_probe_slab_copy_bad_tensor_map_raises(dev):
+    """4 bf16 channels: an 8-byte row stride, which a TMA tensor map refuses
+    (strides are multiples of 16 bytes); the encode's error raises and
+    nothing launches."""
+    from fpn_mt_image_captioning_torch.ops import probes as pr
+
+    x = torch.zeros(1, 10, 16, 4, dtype=torch.bfloat16, device=dev)
+    before = pr.slab_copy_4d.launches
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        pr.slab_copy_4d(x, 4, 2)
+    assert pr.slab_copy_4d.launches == before
+    with pytest.raises(ValueError, match="16 bytes"):
+        pr.slab_copy_flat_loads(torch.zeros(1, 10, 3, 4, dtype=torch.bfloat16, device=dev), 4, 2)
