@@ -102,6 +102,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 B, BEAM, D, H, DFF, NL, LENC, V, MAX_LEN = 64, 8, 512, 8, 2048, 6, 16, 2000, 60
 BK = B * BEAM
+# (name, K, N, activation, float32 output) of each linear of the decode step
+STEP_LINEARS = (("qkv", D, 3 * D, "none", False), ("out", D, D, "none", True),
+                ("cross_q", D, D, "none", False), ("cross_out", D, D, "none", True),
+                ("ffn1", D, DFF, "leaky_relu", False), ("ffn2", DFF, D, "none", True),
+                ("vocab", D, V, "none", True))
 TPU_KERNEL = "fpn_mt_image_captioning_tpu/ops/fused_decoder.py:164"
 SOURCE = "fpn_mt_image_captioning_torch/csrc/fused_decoder.cu"
 BACKBONE_TPU_KERNEL = "fpn_mt_image_captioning_tpu/ops/fused_backbone.py:140"
@@ -138,9 +143,10 @@ def card_line() -> str:
 
 
 TIMING = {"bench_calls": 0, "profiler_windows_retried": 0}
+PROFILE_WINDOWS = 12
 
 
-def bench(fn, iters: int = 20, reps: int = 5, kernels: bool = True) -> tuple[float, float]:
+def bench(fn, iters: int = 50, reps: int = 5, kernels: bool = True) -> tuple[float, float]:
     """``(device_ms, wall_ms)`` of one call of ``fn``. Device time is the sum
     of its kernels' durations as the CUDA profiler records them over
     ``iters`` calls, after warm-up. A Python loop of small launches is bound
@@ -149,9 +155,9 @@ def bench(fn, iters: int = 20, reps: int = 5, kernels: bool = True) -> tuple[flo
 
     Every call of ``fn`` launches the same kernels, so a window whose kernel
     count is not a multiple of ``iters`` lost some (CUPTI has been seen to
-    drop launches) and is profiled again, up to five times; then this
-    raises with the counts it saw, so no wall time ever stands in for a
-    device time. With ``kernels=False`` ``fn`` runs nothing on the card
+    drop launches, cluster launches most) and is profiled again, up to
+    PROFILE_WINDOWS times; then this raises with the counts it saw, so no
+    wall time ever stands in for a device time. With ``kernels=False`` ``fn`` runs nothing on the card
     (it only allocates), and a window with no kernel gives 0.0."""
     import torch
 
@@ -172,14 +178,14 @@ def bench(fn, iters: int = 20, reps: int = 5, kernels: bool = True) -> tuple[flo
         times.append(start.elapsed_time(end) / iters)
     wall = statistics.median(times)
     seen = []
-    for attempt in range(5):
+    for attempt in range(PROFILE_WINDOWS):
         rows, _ = cuda_kernel_times(lambda: [fn() for _ in range(iters)])
         launches = sum(c for _, _, c in rows)
         if (launches or not kernels) and launches % iters == 0:
             return sum(us for _, us, _ in rows) / iters / 1e3, wall
         TIMING["profiler_windows_retried"] += 1
         seen.append(sorted((k[:60], c) for k, _, c in rows))
-    raise SmokeFailure(f"the CUDA profiler lost launches in five windows of {iters} calls: "
+    raise SmokeFailure(f"the CUDA profiler lost launches in {PROFILE_WINDOWS} windows of {iters} calls: "
                        f"(kernel, launches) per window {seen}")
 
 
@@ -235,49 +241,62 @@ def phase_kernels(fd, torch, dev):
         tol = dict(atol=3e-4) if f32 else dict(atol=1e-2, rtol=1e-2)
         esz = 4 if f32 else 2
 
-        # (a) every linear shape of the step
-        for name, k, n, act, out_f32 in (
-                ("qkv", D, 3 * D, "none", False), ("out", D, D, "none", True),
-                ("cross_q", D, D, "none", False), ("ffn1", D, DFF, "leaky_relu", False),
-                ("ffn2", DFF, D, "none", True), ("vocab", D, V, "none", True),
-                ("odd", 100, 36, "gelu", False)):   # K, N not multiples of 8
-            x = rand(BK, k, dtype=dt)
-            w = rand(k, n, scale=math.sqrt(2.0 / k), dtype=dt)
-            b = rand(n, scale=0.1)
-            got = fd.decoder_linear(x, w, b, act, out_f32)
-            want = fd.decoder_linear_reference(x, w, b, act, out_f32)
-            err = close(f"decoder_linear[{name},{dt_name}]", got, want, **tol)
-            ms, wall = bench(lambda: fd.decoder_linear(x, w, b, act, out_f32))
-            plain, plain_wall = bench(lambda: fd.decoder_linear_reference(x, w, b, act, out_f32))
-            line[f"linear_{name}_{dt_name}"] = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall}
-            if name == "qkv" and not f32:
+        # (a) every linear shape of the step, at batch 64 (M = 512) and 8 (M = 64)
+        for m in (BK, 8 * BEAM):
+            for name, k, n, act, out_f32 in STEP_LINEARS + (
+                    (("odd", 100, 36, "gelu", False),) if m == BK else ()):  # K, N not /8
+                x = rand(m, k, dtype=dt)
+                w = rand(k, n, scale=math.sqrt(2.0 / k), dtype=dt)
+                b = rand(n, scale=0.1)
+                got = fd.decoder_linear(x, w, b, act, out_f32)
+                want = fd.decoder_linear_reference(x, w, b, act, out_f32)
+                err = close(f"decoder_linear[{name},M={m},{dt_name}]", got, want, **tol)
+                ms, wall = bench(lambda: fd.decoder_linear(x, w, b, act, out_f32))
+                plain, plain_wall = bench(lambda: fd.decoder_linear_reference(x, w, b, act, out_f32))
                 wt, bt = w.t().contiguous(), b.to(dt)
                 lib, lib_wall = bench(lambda: torch.nn.functional.linear(x, wt, bt))
-                nbytes = (BK * k + k * n + BK * n) * esz + n * 4
-                table["decoder_linear"] = dict(
-                    shape=f"qkv M={BK} K={k} N={n} bf16", max_abs_err=err, ms=ms,
-                    plain_ms=plain, library_ms=lib, bound=bound(nbytes, 2 * BK * k * n, dt_name))
+                nbytes = (m * k + k * n) * esz + m * n * (4 if out_f32 else esz) + n * 4
+                bnd = bound(nbytes, 2 * m * k * n, dt_name)
+                plan = (fd.linear_plan(m, n, k) if not f32 and k % 8 == 0 and n % 8 == 0
+                        else None)
+                line[f"linear_{name}_M{m}_{dt_name}"] = dict(
+                    err=err, ms=ms, wall_ms=wall, plain_ms=plain, plain_wall_ms=plain_wall,
+                    library_ms=lib, library_wall_ms=lib_wall, bound_ms=bnd[0],
+                    plan=None if plan is None else plan._asdict())
+                if name == "qkv" and m == BK and not f32:
+                    table["decoder_linear"] = dict(
+                        shape=f"qkv M={m} K={k} N={n} bf16 (library: F.linear; every step "
+                              "shape at M=512 and 64 in the kernels line)",
+                        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
 
-        # (b) add + LayerNorm, residual in the compute dtype and in float32
-        for rname, r_dt in (("r_t", dt), ("r_f32", torch.float32)):
-            y, r = rand(BK, D), rand(BK, D, dtype=r_dt)
-            gamma, beta = 1 + rand(D, scale=0.1), rand(D, scale=0.1)
-            got_f, got_t = fd.decoder_add_layernorm(y, r, gamma, beta, dt)
-            want_f, want_t = fd.decoder_add_layernorm_reference(y, r, gamma, beta, dt)
-            err = max(close(f"decoder_add_layernorm[{rname},{dt_name}] f32", got_f, want_f,
-                            atol=3e-4),
-                      close(f"decoder_add_layernorm[{rname},{dt_name}]", got_t, want_t, **tol))
-            ms, wall = bench(lambda: fd.decoder_add_layernorm(y, r, gamma, beta, dt))
-            plain, plain_wall = bench(lambda: fd.decoder_add_layernorm_reference(y, r, gamma, beta, dt))
-            line[f"layernorm_{rname}_{dt_name}"] = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall}
-            if rname == "r_t" and not f32:
+        # (b) add + LayerNorm at batch 64 and 8, residual in the compute dtype
+        # and in float32
+        for rows in (BK, 8 * BEAM):
+            for rname, r_dt in (("r_t", dt), ("r_f32", torch.float32)):
+                y, r = rand(rows, D), rand(rows, D, dtype=r_dt)
+                gamma, beta = 1 + rand(D, scale=0.1), rand(D, scale=0.1)
+                got_f, got_t = fd.decoder_add_layernorm(y, r, gamma, beta, dt)
+                want_f, want_t = fd.decoder_add_layernorm_reference(y, r, gamma, beta, dt)
+                label = f"decoder_add_layernorm[{rname},rows={rows},{dt_name}]"
+                err = max(close(f"{label} f32", got_f, want_f, atol=3e-4),
+                          close(label, got_t, want_t, **tol))
+                ms, wall = bench(lambda: fd.decoder_add_layernorm(y, r, gamma, beta, dt))
+                plain, plain_wall = bench(
+                    lambda: fd.decoder_add_layernorm_reference(y, r, gamma, beta, dt))
                 v = y + r.float()
-                lib, lib_wall = bench(lambda: torch.nn.functional.layer_norm(v, (D,), gamma, beta, 1e-6))
-                nbytes = BK * D * (4 + esz) + 2 * D * 4 + BK * D * (4 + esz)
-                table["decoder_add_layernorm"] = dict(
-                    shape=f"rows={BK} d={D} bf16 (library: layer_norm of y + r)",
-                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                    bound=bound(nbytes, 8 * BK * D, "float32"))
+                lib, lib_wall = bench(
+                    lambda: torch.nn.functional.layer_norm(v, (D,), gamma, beta, 1e-6))
+                r_esz = 4 if r_dt == torch.float32 else esz
+                nbytes = rows * D * (4 + r_esz + esz + (0 if f32 else 4)) + 2 * D * 4
+                bnd = bound(nbytes, 8 * rows * D, "float32")
+                line[f"layernorm_{rname}_rows{rows}_{dt_name}"] = dict(
+                    err=err, ms=ms, wall_ms=wall, plain_ms=plain, plain_wall_ms=plain_wall,
+                    library_ms=lib, library_wall_ms=lib_wall, bound_ms=bnd[0])
+                if rname == "r_t" and rows == BK and not f32:
+                    table["decoder_add_layernorm"] = dict(
+                        shape=f"rows={rows} d={D} bf16 (library: layer_norm of y + r; rows "
+                              "512 and 64 in the kernels line)",
+                        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
 
         # (c) self-attention at position 30 through a random ancestry
         qkv = rand(BK, 3 * D, dtype=dt)
@@ -351,6 +370,42 @@ def phase_kernels(fd, torch, dev):
         bound=bound(BK * V * 4 + BK * 8 + BK * BEAM * 8, 6 * BK * V, "float32"))
     say("kernels", **line)
     return table
+
+
+def phase_linear_plans(fd, torch, dev):
+    """The wgmma linear at every step shape (bf16, M = 512 and 64), and at
+    K = 64 (one slice a CTA), under each tile height and K split it can take
+    (at most 4 CTAs an SM): each held to the plain version, timed, beside
+    the default plan's choice."""
+    g = torch.Generator().manual_seed(77)
+    line = {}
+    for m in (BK, 8 * BEAM):
+        # one K slice a CTA without a split: the kernel's fixed cost
+        for name, k, n, act, out_f32 in STEP_LINEARS + (("one_slice", 64, D, "none", True),):
+            if name in ("cross_q", "cross_out"):   # the shapes of out
+                continue
+            x = (torch.randn(m, k, generator=g)).to(dev, torch.bfloat16)
+            w = (torch.randn(k, n, generator=g) * math.sqrt(2.0 / k)).to(dev, torch.bfloat16)
+            b = (torch.randn(n, generator=g) * 0.1).to(dev)
+            want = fd.decoder_linear_reference(x, w, b, act, out_f32)
+            times = {}
+            for bm in (64, 128):
+                for split in (1, 2, 4, 8):
+                    try:
+                        plan = fd.linear_plan(m, n, k, bm=bm, split=split)
+                    except ValueError:
+                        continue
+                    if plan.grid_n * plan.grid_m * split > 4 * 132:
+                        continue
+                    got = fd.decoder_linear(x, w, b, act, out_f32, plan=plan)
+                    close(f"decoder_linear[{name},M={m},bm={bm},split={split}]", got, want,
+                          atol=1e-2, rtol=1e-2)
+                    times[f"bm{bm}_split{split}"] = bench(
+                        lambda: fd.decoder_linear(x, w, b, act, out_f32, plan=plan),
+                        reps=3)[0]
+            chosen = fd.linear_plan(m, n, k)
+            line[f"{name}_M{m}"] = dict(ms=times, chosen=f"bm{chosen.bm}_split{chosen.split}")
+    say("linear_plans", **line)
 
 
 def phase_whole_step(fd, torch, dev, pipe, dt_name):
@@ -1040,6 +1095,7 @@ def main() -> int:
         libraries=[p.name for p in libs.values()] + [native_loader.library_path().name])
 
     table = phase_kernels(fd, torch, dev)
+    phase_linear_plans(fd, torch, dev)
     table["fused_ir_block"] = phase_backbone_kernels(fb, torch, dev)
     phase_backbone_whole(fb, torch, dev)
     probe_table, probe_counts = phase_probes(torch, dev)

@@ -36,6 +36,8 @@ LIBRARIES = {
     "probes": ("probes", ()),
     # the decode step's kernels with empty bodies, for the launch-cost probe
     "fused_decoder_trivial": ("fused_decoder", ("-DFD_TRIVIAL_BODIES",)),
+    # the wgmma linear stamping its phases, for scripts/linear_phases.py
+    "fused_decoder_phases": ("fused_decoder", ("-DFD_PHASE_TIMES",)),
 }
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")

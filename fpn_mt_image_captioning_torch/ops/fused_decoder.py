@@ -33,6 +33,7 @@ import ctypes
 import functools
 import math
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +49,7 @@ __all__ = [
     "decoder_cross_attention", "decoder_cross_attention_reference",
     "decoder_logsoftmax_topk", "decoder_logsoftmax_topk_reference",
     "reset_launch_counts", "LIBRARY", "KERNEL_OPS", "PLAIN_OPS", "decode_step_with",
+    "LinearPlan", "linear_plan",
 ]
 
 # FFN activations the kernels implement (all of models/layers.py)
@@ -56,6 +58,12 @@ _ACT_CODE = {"none": 0, "leaky_relu": 1, "relu": 2, "relu6": 3, "gelu": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-6
 MAX_HEAD_DIM = 128   # the attention kernels hold dh/32 values per lane in 4 registers
+# decoder_linear's wgmma kernel: N and K tiles (one 128-byte swizzle row of
+# bf16), the largest portable thread-block cluster, the H100's SMs
+LINEAR_BN = LINEAR_BK = 64
+MAX_CLUSTER = 8
+H100_SMS = 132
+SPLIT_DEEP = 8   # K slices a split CTA keeps for the split to crowd the SMs
 
 
 def round_up(x: int, m: int) -> int:
@@ -124,7 +132,10 @@ def pack_decoder_weights(model, dtype: torch.dtype = torch.bfloat16) -> dict:
 def init_fused_cache(packed: dict, enc_output: torch.Tensor, beam: int, max_len: int) -> dict:
     """Zero self caches (N, Lpad, B·beam, d) with Lpad = round_up(max_len+1, 8),
     and the cross K/V of every layer projected once per batch item,
-    (N, Lenc, B, 2d). ``enc_output`` is un-tiled (B, Lenc, d)."""
+    (N, Lenc, B, 2d). ``enc_output`` is un-tiled (B, Lenc, d); an empty one
+    (Lenc = 0, what a 64² input encodes to) raises ValueError, as the
+    JAX package's ``fused_decode_step`` does over it."""
+    _check_lenc(enc_output.shape[1])
     n, d, _ = packed["wqkv"].shape
     dtype = packed["wqkv"].dtype
     lpad = round_up(max_len + 1, 8)
@@ -197,8 +208,17 @@ def decoder_self_attention_reference(qkv, k_self, v_self, layer: int, pos: int,
     return _attend(q, k, v, num_heads)
 
 
+def _check_lenc(lenc: int) -> None:
+    if lenc == 0:
+        raise ValueError("cross-attention over an empty encoder output (Lenc = 0): the "
+                         "softmax has no position to weigh (the JAX package's "
+                         "fused_decode_step raises on it too)")
+
+
 def decoder_cross_attention_reference(q, kv_cross, layer: int, beam: int, num_heads: int):
-    """Attention of each row over its batch item's (row // beam) encoder K/V."""
+    """Attention of each row over its batch item's (row // beam) encoder K/V;
+    raises ValueError over an empty encoder output."""
+    _check_lenc(kv_cross.shape[1])
     d = q.shape[1]
     kv = kv_cross[layer][:, torch.arange(q.shape[0], device=q.device) // beam]  # (Lenc, BK, 2d)
     return _attend(q, kv[..., :d], kv[..., d:], num_heads)
@@ -229,7 +249,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library(LIBRARY)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
-        "fd_linear": [P, P, P, P, I, I, I, I, I, I, P],
+        "fd_linear": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
         "fd_add_layernorm": [P, P, P, P, P, P, I, I, I, I, Fl, P],
         "fd_self_attention": [P, P, P, P, P, I, I, I, I, I, Fl, I, P],
         "fd_cross_attention": [P, P, P, I, I, I, I, I, I, Fl, I, P],
@@ -252,9 +272,65 @@ def _error_string(rc: int) -> bytes:
     return _lib().fd_error_string(rc)
 
 
-def decoder_linear(x, w, b, act: str = "none", out_f32: bool = False):
+class LinearPlan(NamedTuple):
+    """How ``decoder_linear``'s wgmma kernel covers an (M, K) × (K, N)
+    product: output tiles of ``bm`` × ``bn``, K split across a cluster of
+    ``split`` CTAs; grid (split, grid_n, grid_m), ``kslices`` 64-deep K slices
+    a CTA (split · kslices = ceil(K / 64))."""
+    bm: int
+    bn: int
+    split: int
+    grid_n: int
+    grid_m: int
+    kslices: int
+
+
+@functools.lru_cache(maxsize=1024)
+def linear_plan(m: int, n: int, k: int, sms: int = H100_SMS, bm: int | None = None,
+                split: int | None = None) -> LinearPlan:
+    """The tile and split plan of the wgmma kernel. Tiles of 64 rows (one
+    consumer warpgroup), or of 128 rows (two, sharing each W slice) where
+    64-row tiles would outnumber the SMs. K is split in powers of two across
+    a cluster (at most 8 CTAs, each a whole number of 64-deep slices) while
+    the CTAs stay within 3/4 of the SMs, or within all of them where each
+    CTA still walks ``SPLIT_DEEP`` slices or more: a split's cluster barriers
+    and exchange cost ~1.3 µs, which a short K repays only while few CTAs
+    share the card (PERF.md). ``bm`` (64 or 128) and ``split`` force a
+    plan, for tests and measurements."""
+    slices, grid_n = -(-k // LINEAR_BK), -(-n // LINEAR_BN)
+    if bm is None:
+        bm = 128 if m > 64 and grid_n * -(-m // 64) > sms else 64
+    if bm not in (64, 128):
+        raise ValueError(f"linear_plan: bm must be 64 or 128, not {bm}")
+    grid_m = -(-m // bm)
+    if split is None:
+        split = 1
+        while 2 * split <= MAX_CLUSTER and slices % (2 * split) == 0:
+            ctas = grid_n * grid_m * 2 * split
+            if ctas > sms or (ctas > 3 * sms // 4 and slices // (2 * split) < SPLIT_DEEP):
+                break
+            split *= 2
+    if split not in (1, 2, 4, 8) or slices % split:
+        raise ValueError(f"linear_plan: split {split} is not 1, 2, 4 or 8 dividing {slices} "
+                         "K slices")
+    return LinearPlan(bm, LINEAR_BN, split, grid_n, grid_m, slices // split)
+
+
+@functools.cache
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_NO_PLAN = LinearPlan(0, 0, 0, 0, 0, 0)   # linear_kernel on the CUDA cores
+
+
+def decoder_linear(x, w, b, act: str = "none", out_f32: bool = False,
+                   plan: LinearPlan | None = None):
     """Kernel (a): ``act(x·w + b)`` — x (M, K), w (K, N) in x's dtype, b (N,)
-    float32; result in x's dtype, or float32 with ``out_f32``."""
+    float32; result in x's dtype, or float32 with ``out_f32``. bf16 with K and
+    N multiples of 8 runs the wgmma kernel on ``plan`` (default
+    ``linear_plan(M, N, K)``; x and w must start on 16-byte boundaries);
+    anything else the CUDA-core kernel."""
     if on_cpu(x):
         return decoder_linear_reference(x, w, b, act, out_f32)
     m, k = x.shape
@@ -263,9 +339,18 @@ def decoder_linear(x, w, b, act: str = "none", out_f32: bool = False):
     check("x", x, (m, k), x.dtype, dev)
     check("w", w, (k, n), x.dtype, dev)
     check("b", b, (n,), torch.float32, dev)
+    if code == 1 and k % 8 == 0 and n % 8 == 0:
+        if (x.data_ptr() | w.data_ptr()) % 16:
+            raise ValueError("decoder_linear: x and w must start on 16-byte boundaries")
+        plan = plan or linear_plan(m, n, k, _sm_count(dev))
+    elif plan is not None:
+        raise ValueError("decoder_linear: a plan applies to bf16 with K and N multiples of 8")
+    else:
+        plan = _NO_PLAN
     y = x.new_empty((m, n), dtype=torch.float32 if out_f32 else x.dtype)
     rc = _lib().fd_linear(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, n, k,
-                          code, int(out_f32), _ACT_CODE[act], stream(dev))
+                          code, int(out_f32), _ACT_CODE[act], plan.bm, plan.split, plan.grid_n,
+                          plan.grid_m, plan.kslices, stream(dev))
     launched(decoder_linear, rc, _error_string)
     return y
 
@@ -332,7 +417,9 @@ def decoder_self_attention(qkv, k_self, v_self, layer: int, pos: int, src_t, bea
 
 def decoder_cross_attention(q, kv_cross, layer: int, beam: int, num_heads: int):
     """Kernel (d): cross-attention of q (BK, d) over kv_cross[layer]
-    (Lenc, B, 2d), row r reading batch item r // beam. Returns (BK, d)."""
+    (Lenc, B, 2d), row r reading batch item r // beam. Returns (BK, d).
+    Raises ValueError over an empty encoder output, on either device."""
+    _check_lenc(kv_cross.shape[1])
     if on_cpu(q):
         return decoder_cross_attention_reference(q, kv_cross, layer, beam, num_heads)
     bk, d = q.shape

@@ -1,8 +1,11 @@
 """The fused decode step's CUDA kernels against their plain PyTorch versions
-on the card, at small and ragged shapes that the flagship smoke run does not
-reach (odd M/N/K, head width 8 and 128, position 0, a vocabulary whose totals
-exceed 48 KB of shared memory, exact ties). Needs a CUDA card and nvcc: every
-test here skips on a machine without one. On the card (which has no JAX, so
+on the card, at the step's own linear and LayerNorm shapes (batch 8 and 64)
+and at small and ragged shapes that the flagship smoke run does not reach
+(odd M/N/K, every tile and split plan of the wgmma linear, head width 8 and
+128, position 0, a vocabulary whose totals exceed 48 KB of shared memory,
+exact ties), a CUDA-graph capture, a split-K product run twice and the
+wgmma linear's phase stamps. Needs a CUDA card and nvcc: every test here
+skips on a machine without one. On the card (which has no JAX, so
 the JAX-side conftest is skipped):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
@@ -39,10 +42,18 @@ def assert_close(got, want, dtype):
     assert torch.isfinite(got).all() and bool((err <= tol).all()), float(err.max())
 
 
+# (K, N) of the decode step's linears at d 512, dff 2048, vocabulary 2000:
+# QKV, the three d→d projections (out, cross q, cross out), FFN1, FFN2, vocab
+STEP_KN = [(512, 1536), (512, 512), (512, 2048), (2048, 512), (512, 2000)]
+LINEAR_SHAPES = ([(5, 24, 40), (64, 512, 136), (130, 100, 36), (1, 8, 8), (100, 512, 512),
+                  (100, 24, 40), (7, 24, 1536)]
+                 + [(m, k, n) for m in (64, 512) for k, n in STEP_KN])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,k,n", [(5, 24, 40), (64, 512, 136), (130, 100, 36), (1, 8, 8)])
-@pytest.mark.parametrize("act,out_f32", [("none", True), ("leaky_relu", False), ("gelu", False),
-                                         ("relu6", True), ("relu", False)])
+@pytest.mark.parametrize("m,k,n", LINEAR_SHAPES)
+@pytest.mark.parametrize("act,out_f32", [("none", True), ("none", False), ("leaky_relu", False),
+                                         ("gelu", False), ("relu6", True), ("relu", False)])
 def test_linear(dev, dtype, m, k, n, act, out_f32):
     g = torch.Generator().manual_seed(m * 7 + n)
     x, w = rand(g, m, k, dtype=dtype), rand(g, k, n, scale=k ** -0.5, dtype=dtype)
@@ -54,8 +65,91 @@ def test_linear(dev, dtype, m, k, n, act, out_f32):
     assert_close(got, fd.decoder_linear_reference(x, w, b, act, out_f32), dtype)
 
 
+@pytest.mark.parametrize("m,k,n", [(5, 24, 40), (100, 512, 512), (512, 2048, 512), (1, 8, 8),
+                                   (130, 1000, 200)])
+@pytest.mark.parametrize("bm,split", [(64, 1), (64, 2), (128, 1), (128, 2), (64, 8), (128, 8)])
+def test_linear_plans(dev, m, k, n, bm, split):
+    """Every tile height and split of the wgmma kernel on ragged shapes
+    (the default plan reaches only some); a split that does not divide K's
+    slices raises before anything launches."""
+    g = torch.Generator().manual_seed(m + k + bm + split)
+    x = rand(g, m, k, dtype=torch.bfloat16)
+    w, b = rand(g, k, n, scale=k ** -0.5, dtype=torch.bfloat16), rand(g, n, scale=0.5)
+    before = fd.decoder_linear.launches
+    try:
+        plan = fd.linear_plan(m, n, k, bm=bm, split=split)
+    except ValueError:
+        assert (-(-k // 64)) % split
+        return
+    got = fd.decoder_linear(x, w, b, "gelu", False, plan=plan)
+    assert fd.decoder_linear.launches == before + 1
+    assert_close(got, fd.decoder_linear_reference(x, w, b, "gelu", False), torch.bfloat16)
+
+
+def test_linear_split_k_is_deterministic(dev):
+    """A split-K product (batch 8's FFN2: 8 output tiles, K over 8 CTAs) is
+    bitwise the same on every run: the partials add up in a fixed order."""
+    g = torch.Generator().manual_seed(8)
+    x = rand(g, 64, 2048, dtype=torch.bfloat16)
+    w, b = rand(g, 2048, 512, scale=2048 ** -0.5, dtype=torch.bfloat16), rand(g, 512)
+    assert fd.linear_plan(64, 512, 2048).split > 1
+    first = fd.decoder_linear(x, w, b, out_f32=True)
+    for _ in range(3):
+        assert torch.equal(fd.decoder_linear(x, w, b, out_f32=True), first)
+    assert_close(first, fd.decoder_linear_reference(x, w, b, out_f32=True), torch.bfloat16)
+
+
+def test_linear_phase_times(dev):
+    """The phase-stamping build (scripts/linear_phases.py) computes the same
+    product and stamps every CTA of a split launch, each phase in order."""
+    from fpn_mt_image_captioning_torch.scripts import linear_phases as lp
+
+    g = torch.Generator().manual_seed(5)
+    x = rand(g, 64, 2048, dtype=torch.bfloat16)
+    w, b = rand(g, 2048, 512, scale=2048 ** -0.5, dtype=torch.bfloat16), rand(g, 512)
+    mod, plan = lp.phases_decoder(), fd.linear_plan(64, 512, 2048)
+    assert plan.split > 1
+    got = lp.phase_times(mod, x, w, b, "none", True, plan)
+    assert got["ctas"] == plan.split * plan.grid_n * plan.grid_m
+    phases = got["phases_ns_median_max"]
+    assert set(phases) == set(lp.PHASES)
+    assert all(0 <= med <= top for med, top in phases.values())
+    assert phases["total"][0] > 0 and got["span_ns"] > 0
+    assert_close(mod.decoder_linear(x, w, b, out_f32=True, plan=plan),
+                 fd.decoder_linear_reference(x, w, b, out_f32=True), torch.bfloat16)
+
+
+def test_linear_and_layernorm_in_cuda_graph(dev):
+    """One linear and one add + LayerNorm captured in a CUDA graph; each
+    replay recomputes them from the inputs' current values."""
+    g = torch.Generator().manual_seed(3)
+    x = rand(g, 512, 512, dtype=torch.bfloat16)
+    w, b = rand(g, 512, 512, scale=512 ** -0.5, dtype=torch.bfloat16), rand(g, 512)
+    r = rand(g, 512, 512, dtype=torch.bfloat16)
+    gamma, beta = 1 + rand(g, 512, scale=0.2), rand(g, 512, scale=0.2)
+    run = lambda: fd.decoder_add_layernorm(fd.decoder_linear(x, w, b, out_f32=True), r, gamma,
+                                           beta, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_f, out_t = run()
+    for seed in range(3):
+        x.copy_(rand(torch.Generator().manual_seed(seed), 512, 512, dtype=torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        y = fd.decoder_linear_reference(x, w, b, out_f32=True)
+        want_f, want_t = fd.decoder_add_layernorm_reference(y, r, gamma, beta, torch.bfloat16)
+        assert_close(out_f, want_f, torch.bfloat16)
+        assert_close(out_t, want_t, torch.bfloat16)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,d", [(3, 32), (17, 512), (2, 1000)])
+@pytest.mark.parametrize("rows,d", [(3, 32), (17, 512), (2, 1000), (512, 512), (64, 512),
+                                    (5, 1024), (6, 384)])
 @pytest.mark.parametrize("r_f32", [False, True])
 def test_add_layernorm(dev, dtype, rows, d, r_f32):
     g = torch.Generator().manual_seed(rows + d)
@@ -120,6 +214,14 @@ def test_wrappers_reject_bad_inputs(dev):
                           torch.zeros(8, device=dev))
     with pytest.raises(ValueError):
         fd.decoder_linear(x.t(), torch.zeros(4, 8, device=dev), torch.zeros(8, device=dev))
+    # bf16 x that starts 2 bytes past a 16-byte boundary: TMA cannot read it
+    xb = torch.zeros(33, dtype=torch.bfloat16, device=dev)[1:].view(4, 8)
+    wb = torch.zeros(8, 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd.decoder_linear(xb, wb, torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="Lenc = 0"):
+        fd.decoder_cross_attention(torch.zeros(4, 8, device=dev),
+                                   torch.zeros(1, 0, 2, 16, device=dev), 0, 2, 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -129,3 +129,31 @@ def test_cache_rows_written_and_rest_zero():
     k = pcache["k_self"]
     assert torch.count_nonzero(k[:, :2]) > 0 and torch.count_nonzero(k[:, 2:]) == 0
     assert torch.count_nonzero(pcache["v_self"][:, 2:]) == 0
+
+
+def test_empty_encoder_output_raises():
+    """An encoder output of (B, 0, d) — what a 64² input encodes to: the JAX
+    package's fused step raises (its cross-attention softmax reduces over no
+    position), and the port raises too, at the cache and in both routes of
+    the cross-attention, instead of returning scores over an empty context."""
+    b, beam, max_len, vocab = 2, 2, 7, 40
+    params, pt, _ = build(vocab, max_len, b)
+    enc = np.zeros((b, 0, D), np.float32)
+    jpacked = jx_fd.pack_decoder_weights(params, NL, dtype=jnp.float32)
+    jcache = jx_fd.init_fused_cache(jpacked, jnp.asarray(enc), beam, max_len)
+    bk, lpad = b * beam, jcache["k_self"].shape[1]
+    src = np.broadcast_to(np.arange(bk) % beam, (lpad, bk)).astype(np.int32)
+    x_emb = np.zeros((bk, D), np.float32)
+    zeros = jnp.zeros((bk, 1), jnp.float32)
+    with pytest.raises(ValueError):
+        jx_fd.fused_decode_step(jpacked, jcache, jnp.asarray(x_emb), jnp.asarray(src),
+                                jnp.int32(0), zeros, zeros, num_layers=NL, beam=beam,
+                                num_heads=H, topk=2, interpret=True)
+
+    ppacked = pt_fd.pack_decoder_weights(pt, torch.float32)
+    with pytest.raises(ValueError, match="Lenc = 0"):
+        pt_fd.init_fused_cache(ppacked, torch.from_numpy(enc), beam, max_len)
+    q, kv_cross = torch.zeros(bk, D), torch.zeros(NL, 0, b, 2 * D)
+    for route in (pt_fd.decoder_cross_attention, pt_fd.decoder_cross_attention_reference):
+        with pytest.raises(ValueError, match="Lenc = 0"):
+            route(q, kv_cross, 0, beam, H)
