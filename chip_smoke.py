@@ -15,12 +15,14 @@ the script exits non-zero without its last line):
      (g++), which must report itself available;
   3. decode kernels vs plain — each hand-written kernel of the fused decode
      step held to its plain PyTorch version at the flagship decode shapes
-     (B·beam = 512, d 512, 8 heads, dff 2048, 6 layers, Lpad 64, Lenc 16,
-     vocab 2000): float32 at the JAX tests' bar (atol 3e-4, ids equal),
-     bfloat16 at |err| <= 1e-2 + 1e-2·|plain| (one bf16 rounding of the
-     result, 2^-8 relative); with each kernel's time beside its plain
-     version's, the one PyTorch call for the same function where there is
-     one, and its bound;
+     (B·beam = 512, d 512, 8 heads, dff 2048, 6 layers, Lpad 64, vocab
+     2000; self-attention at positions 1, 30 and 59, its cache writes
+     bitwise equal; cross-attention at Lenc 16 and 64): float32 at the JAX
+     tests' bar (atol 3e-4, ids equal), bfloat16 at |err| <= 1e-2 +
+     1e-2·|plain| (one bf16 rounding of the result, 2^-8 relative); with
+     each kernel's time beside its plain version's, the one PyTorch call for
+     the same function where there is one (for self-attention, SDPA over
+     K/V gathered beforehand as a yardstick only: two calls), and its bound;
   4. backbone kernel vs plain — ``fused_ir_block`` (``csrc/fused_backbone.cu``)
      held to ``fused_ir_block_reference`` at every distinct block shape of a
      flagship encode (512², batch 64; blocks 0, 1, 11, 13 and 16 among them),
@@ -59,7 +61,9 @@ the script exits non-zero without its last line):
      five timed encodes and one run under the CUDA profiler each; launch
      counters reset just before and read just after, each decode kernel's
      non-zero and equal to the decode steps × its launches per step, the
-     backbone kernel's zero (this encode runs cuDNN);
+     backbone kernel's zero (this encode runs cuDNN); each attention
+     kernel's mean device time a launch in the traced batch-64 run beside
+     its isolated times from phase 3;
  10. fused main path — the same ``predict_batch`` at batch 64 with
      ``fused_backbone=True`` (same weights): counters reset just before and
      read just after, ``fused_ir_block`` at 17 × the encodes; then the fused
@@ -125,6 +129,11 @@ PROBE_TPU_KERNELS = {
     "slab_copy_flat_loads": _SLAB_D_TPU, "slab_copy_flat_cp_async": _SLAB_D_TPU,
 }
 SIZE, N_BLOCKS, CLI_FILES, SERVER_REQUESTS = 512, 17, 70, 8
+SELF_POSITIONS, CROSS_LENCS = (1, 30, 59), (LENC, 64)   # where (c) and (d) are timed alone
+# the attention kernels' isolated device ms (phase_kernels, bf16), beside
+# their in-situ means per launch in the traced main path
+ISOLATED: dict[str, float] = {}
+ATTENTION_KERNELS = ("self_attention", "cross_attention")   # parts of the kernels' names
 
 
 class SmokeFailure(RuntimeError):
@@ -234,8 +243,7 @@ def phase_kernels(fd, torch, dev):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
     table, line = {}, {}
-    lpad = 64
-    pos, layer = 30, 2
+    lpad, layer = 64, 2
     for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         f32 = dt == torch.float32
         tol = dict(atol=3e-4) if f32 else dict(atol=1e-2, rtol=1e-2)
@@ -298,53 +306,88 @@ def phase_kernels(fd, torch, dev):
                               "512 and 64 in the kernels line)",
                         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
 
-        # (c) self-attention at position 30 through a random ancestry
+        # (c) self-attention at positions 1, 30 and 59 through a random ancestry,
+        # each with its own bound; beside it, as a yardstick only, SDPA over
+        # K/V gathered beforehand (two calls, not the rule's library call)
         qkv = rand(BK, 3 * D, dtype=dt)
         k_self, v_self = rand(NL, lpad, BK, D, dtype=dt), rand(NL, lpad, BK, D, dtype=dt)
         src_t = torch.randint(0, BEAM, (lpad, BK), generator=g, dtype=torch.int32).to(dev)
-        k1, v1, k2, v2 = k_self.clone(), v_self.clone(), k_self.clone(), v_self.clone()
-        got = fd.decoder_self_attention(qkv, k1, v1, layer, pos, src_t, BEAM, H)
-        want = fd.decoder_self_attention_reference(qkv, k2, v2, layer, pos, src_t, BEAM, H)
-        err = close(f"decoder_self_attention[{dt_name}]", got, want, **tol)
-        if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
-            raise SmokeFailure(f"decoder_self_attention[{dt_name}]: cache writes differ")
-        ms, wall = bench(lambda: fd.decoder_self_attention(qkv, k1, v1, layer, pos, src_t, BEAM, H))
-        plain, plain_wall = bench(lambda: fd.decoder_self_attention_reference(
-            qkv, k2, v2, layer, pos, src_t, BEAM, H))
-        line[f"self_attention_{dt_name}"] = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall}
-        if not f32:
-            phys = (torch.arange(BK, device=dev) // BEAM) * BEAM + src_t[:pos].long()
-            distinct = int(torch.unique(phys + BK * torch.arange(pos, device=dev)[:, None]).numel())
-            nbytes = (BK * 3 * D + 2 * distinct * D + BK * D + 2 * BK * D) * esz + pos * BK * 4
-            table["decoder_self_attention"] = dict(
-                shape=f"BK={BK} d={D} H={H} pos={pos} bf16", max_abs_err=err, ms=ms,
-                plain_ms=plain, library_ms=None,
-                bound=bound(nbytes, 4 * BK * D * (pos + 1), dt_name))
+        for pos in SELF_POSITIONS:
+            k1, v1, k2, v2 = k_self.clone(), v_self.clone(), k_self.clone(), v_self.clone()
+            label = f"decoder_self_attention[pos={pos},{dt_name}]"
+            got = fd.decoder_self_attention(qkv, k1, v1, layer, pos, src_t, BEAM, H)
+            want = fd.decoder_self_attention_reference(qkv, k2, v2, layer, pos, src_t, BEAM, H)
+            err = close(label, got, want, **tol)
+            if not (torch.equal(k1, k2) and torch.equal(v1, v2)):
+                raise SmokeFailure(f"{label}: cache writes differ")
+            ms, wall = bench(lambda: fd.decoder_self_attention(qkv, k1, v1, layer, pos, src_t, BEAM, H))
+            plain, plain_wall = bench(lambda: fd.decoder_self_attention_reference(
+                qkv, k2, v2, layer, pos, src_t, BEAM, H))
+            entry = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall,
+                     "plain_wall_ms": plain_wall}
+            if not f32:
+                phys = (torch.arange(BK, device=dev) // BEAM) * BEAM + src_t[:pos].long()
+                distinct = int(torch.unique(phys + BK * torch.arange(pos, device=dev)[:, None]).numel())
+                nbytes = (BK * 3 * D + 2 * distinct * D + BK * D + 2 * BK * D) * esz + pos * BK * 4
+                bnd = bound(nbytes, 4 * BK * D * (pos + 1), dt_name)
+                p_idx = torch.arange(pos, device=dev)[:, None]
+                heads = lambda t: t.reshape(pos + 1, BK, H, D // H).permute(1, 2, 0, 3).contiguous()
+                kg = heads(torch.cat([k1[layer][p_idx, phys], qkv[None, :, D:2 * D]]))
+                vg = heads(torch.cat([v1[layer][p_idx, phys], qkv[None, :, 2 * D:]]))
+                qh = qkv[:, :D].reshape(BK, H, 1, D // H)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                close(f"{label} yardstick check", sdpa(qh, kg, vg).reshape(BK, D), want,
+                      atol=2e-2, rtol=2e-2)
+                yard = bench(lambda: sdpa(qh, kg, vg))[0]
+                entry.update(bound_ms=bnd[0], distinct_rows=distinct,
+                             sdpa_pregathered_ms=yard,
+                             sdpa_pregathered_note="two calls, not the rule's library call: "
+                                                   "the gather is not timed")
+                ISOLATED[f"decoder_self_attention_pos{pos}"] = ms
+                if pos == 30:
+                    table["decoder_self_attention"] = dict(
+                        shape=f"BK={BK} d={D} H={H} pos={pos} bf16 (positions 1, 30 and 59 in "
+                              "the kernels line, each with its bound)",
+                        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=bnd)
+            line[f"self_attention_pos{pos}_{dt_name}"] = entry
+            del k1, v1, k2, v2
+        del k_self, v_self
 
-        # (d) cross-attention over the per-item encoder K/V
+        # (d) cross-attention over the per-item encoder K/V, Lenc 16 and 64
         q = rand(BK, D, dtype=dt)
-        kv_cross = rand(NL, LENC, B, 2 * D, dtype=dt)
-        got = fd.decoder_cross_attention(q, kv_cross, layer, BEAM, H)
-        want = fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, H)
-        err = close(f"decoder_cross_attention[{dt_name}]", got, want, **tol)
-        ms, wall = bench(lambda: fd.decoder_cross_attention(q, kv_cross, layer, BEAM, H))
-        plain, plain_wall = bench(lambda: fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, H))
-        line[f"cross_attention_{dt_name}"] = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall, "plain_wall_ms": plain_wall}
-        if not f32:
-            dh = D // H
-            qs = q.reshape(B, BEAM, H, dh).transpose(1, 2)                     # (B, H, beam, dh)
-            kx = kv_cross[layer, :, :, :D].reshape(LENC, B, H, dh).permute(1, 2, 0, 3)
-            vx = kv_cross[layer, :, :, D:].reshape(LENC, B, H, dh).permute(1, 2, 0, 3)
-            kx, vx = kx.contiguous(), vx.contiguous()
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            lib_out = sdpa(qs, kx, vx).transpose(1, 2).reshape(BK, D)
-            close("cross_attention library check", lib_out, want, atol=2e-2, rtol=2e-2)
-            lib, lib_wall = bench(lambda: sdpa(qs, kx, vx))
-            nbytes = (BK * D + LENC * B * 2 * D + BK * D) * esz
-            table["decoder_cross_attention"] = dict(
-                shape=f"BK={BK} B={B} Lenc={LENC} d={D} H={H} bf16 (library: SDPA)",
-                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                bound=bound(nbytes, 4 * BK * D * LENC, dt_name))
+        for lenc in CROSS_LENCS:
+            kv_cross = rand(NL, lenc, B, 2 * D, dtype=dt)
+            label = f"decoder_cross_attention[Lenc={lenc},{dt_name}]"
+            got = fd.decoder_cross_attention(q, kv_cross, layer, BEAM, H)
+            want = fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, H)
+            err = close(label, got, want, **tol)
+            ms, wall = bench(lambda: fd.decoder_cross_attention(q, kv_cross, layer, BEAM, H))
+            plain, plain_wall = bench(
+                lambda: fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, H))
+            entry = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall,
+                     "plain_wall_ms": plain_wall}
+            if not f32:
+                dh = D // H
+                qs = q.reshape(B, BEAM, H, dh).transpose(1, 2)                     # (B, H, beam, dh)
+                kx = kv_cross[layer, :, :, :D].reshape(lenc, B, H, dh).permute(1, 2, 0, 3)
+                vx = kv_cross[layer, :, :, D:].reshape(lenc, B, H, dh).permute(1, 2, 0, 3)
+                kx, vx = kx.contiguous(), vx.contiguous()
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib_out = sdpa(qs, kx, vx).transpose(1, 2).reshape(BK, D)
+                close(f"{label} library check", lib_out, want, atol=2e-2, rtol=2e-2)
+                lib, lib_wall = bench(lambda: sdpa(qs, kx, vx))
+                nbytes = (BK * D + lenc * B * 2 * D + BK * D) * esz
+                bnd = bound(nbytes, 4 * BK * D * lenc, dt_name)
+                entry.update(bound_ms=bnd[0], library_ms=lib, library_wall_ms=lib_wall)
+                ISOLATED[f"decoder_cross_attention_lenc{lenc}"] = ms
+                if lenc == LENC:
+                    table["decoder_cross_attention"] = dict(
+                        shape=f"BK={BK} B={B} Lenc={lenc} d={D} H={H} bf16, tensor-core kernel "
+                              "(library: SDPA; Lenc 16 and 64 in the kernels line, float32 on "
+                              "the CUDA-core kernel)",
+                        max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
+            line[f"cross_attention_lenc{lenc}_{dt_name}"] = entry
+            del kv_cross
 
     # (e) log-softmax + freeze + top-k: float32 logits spaced apart (no
     # accidental near ties), plus exact ties planted on purpose
@@ -486,13 +529,14 @@ def synthetic_tokenizer(Tokenizer, filters):
     return tok
 
 
-def profile_run(torch, fn) -> dict:
+def profile_run(torch, fn, means=()) -> dict:
     """One traced run of ``fn`` (after an untraced one in the same profiler
     window): wall time, the device's busy time (sum of
     kernel and copy durations; kernels of one stream do not overlap) and
-    idle share, and the device time by kernel name, largest first. A window
-    that records nothing is run again, up to three times; then this
-    raises."""
+    idle share, the device time by kernel name, largest first, and for each
+    name part in ``means`` the launches and mean µs a launch of the kernels
+    whose names hold it. A window that records nothing is run again, up to
+    three times; then this raises."""
     from fpn_mt_image_captioning_torch.utils.profiling import cuda_kernel_times
 
     for _ in range(3):
@@ -503,8 +547,13 @@ def profile_run(torch, fn) -> dict:
         raise SmokeFailure("the CUDA profiler recorded no device time in three windows")
     rows = sorted(((k, us / 1e3, c) for k, us, c in rows), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
-                top=[{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:12]])
+    out = dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+               top=[{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:12]])
+    for part in means:
+        ms = sum(r[1] for r in rows if part in r[0])
+        n = sum(r[2] for r in rows if part in r[0])
+        out.setdefault("in_situ", {})[part] = dict(launches=n, us_per_launch=1e3 * ms / n if n else None)
+    return out
 
 
 def phase_main(fd, torch, dev, pipe):
@@ -535,7 +584,7 @@ def phase_main(fd, torch, dev, pipe):
             pipe.encode(images)
             torch.cuda.synchronize()
             encodes.append(time.perf_counter() - t0)
-        trace = profile_run(torch, lambda: pipe.predict_batch(images))
+        trace = profile_run(torch, lambda: pipe.predict_batch(images), means=ATTENTION_KERNELS)
         captions = [pipe.to_caption(seqs[i], lengths[i]) for i in range(batch)]
         if seqs.shape != (batch, MAX_LEN) or seqs.dtype != np.int32:
             raise SmokeFailure(f"batch {batch}: sequences {seqs.shape} {seqs.dtype}")
@@ -558,6 +607,10 @@ def phase_main(fd, torch, dev, pipe):
         launches=counts)
     for b, trace in traces.items():
         say(f"trace_batch{b}", **trace)
+    # each attention kernel's mean a launch over a traced predict_batch of 64
+    # (positions 0-59, the cache cold in L2) beside its isolated time (L2 warm)
+    say("attention_in_situ", batch=64, in_situ=traces[64]["in_situ"],
+        isolated_us={k: 1e3 * v for k, v in ISOLATED.items()})
     return counts, out[64]
 
 

@@ -642,166 +642,527 @@ __global__ void __launch_bounds__(32 * LN_ROWS) add_layernorm_kernel(
   }
 }
 
-// Softmax in place over n logits held in shared memory by one warp; returns
-// 1/sum so the caller scales the exponentials (they are left unnormalized).
-__device__ __forceinline__ float warp_softmax_exp(float* lg, int n) {
-  const int lane = threadIdx.x & 31;
-  float m = -INFINITY;
-  for (int p = lane; p < n; p += 32) m = fmaxf(m, lg[p]);
-  m = warp_max(m);
-  float s = 0.f;
-  for (int p = lane; p < n; p += 32) {
-    const float e = expf(lg[p] - m);
-    lg[p] = e;
-    s += e;
+// --- the attention kernels' lane chunks -------------------------------------
+// A lane's share of one head row: with VEC, 16 bytes (8 bf16 or 4 float32
+// values) moved by one load or store; otherwise 4 values moved one at a time
+// and masked to the row's end (head rows that are not a multiple of 16 bytes,
+// or a pointer off a 16-byte boundary). Element i of a 16-byte chunk is read
+// from its 32-bit word: a bf16 is the upper half of the float it widens to.
+template <typename T, bool VEC> struct Chunk;
+
+template <typename T> struct Chunk<T, true> {
+  static constexpr int CW = 16 / (int)sizeof(T);
+  uint4 u;
+  __device__ __forceinline__ void load(const T* p, int) { u = __ldg(reinterpret_cast<const uint4*>(p)); }
+  __device__ __forceinline__ float operator[](int i) const {
+    const int k = sizeof(T) == 4 ? i : i >> 1;  // the 32-bit word that holds element i
+    const uint32_t w = k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w;
+    if (sizeof(T) == 4) return __uint_as_float(w);
+    return __uint_as_float(i & 1 ? w & 0xffff0000u : w << 16);
   }
-  s = warp_sum(s);
-  __syncwarp();
-  return 1.f / s;
+};
+
+template <typename T> struct Chunk<T, false> {
+  static constexpr int CW = 4;
+  float f[4];
+  __device__ __forceinline__ void load(const T* p, int n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = i < n ? to_f(p[i]) : 0.f;
+  }
+  __device__ __forceinline__ float operator[](int i) const { return f[i]; }
+};
+
+__device__ __forceinline__ uint32_t pack_bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-constexpr int MAX_DH_REGS = 4;  // head width up to 128
+// n (<= CW) values of v, rounded to T, to p.
+template <typename T, bool VEC, int CW>
+__device__ __forceinline__ void store_chunk(T* p, const float (&v)[CW], int n) {
+  if constexpr (VEC && sizeof(T) == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                                              __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]),
+                                              pack_bf2(v[4], v[5]), pack_bf2(v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+      if (i < n) p[i] = from_f<T>(v[i]);
+  }
+}
+
+// n (<= CW) elements from src to dst, bit for bit.
+template <typename T, bool VEC, int CW>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int n) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+      if (i < n) dst[i] = src[i];
+  }
+}
+
+// exp(a - m), 0 where a is -inf (an empty running max); m is finite or -inf
+// together with a.
+__device__ __forceinline__ float rescale(float a, float m) {
+  return a == -INFINITY ? 0.f : expf(a - m);
+}
 
 // ---------------------------------------------------------------------------
-// (c) decoder_self_attention, one block per row, one warp per head.
-// Writes this position's k_t/v_t (from the fused QKV output) into the
-// position-major cache k_self[layer, pos, row] / v_self[...], attends over
-// positions p < pos through the beam ancestry — physical row
-// (row / beam) * beam + src_t[p, row], an indexed load replacing the TPU's
-// one-hot ancestry matmul (fused_decoder.py:340-353) — and takes the current
-// position's term straight from k_t/v_t (:274-278, :365-384). Scale 1/sqrt(dh),
-// float32 softmax and context; context cast to the input dtype.
+// (c) decoder_self_attention (_decoder_kernel's self-attention,
+// fused_decoder.py:330-400). Writes this position's k_t/v_t (from the fused
+// QKV output) into the position-major cache k_self[layer, pos, row] /
+// v_self[...] in place, and attends over positions p < pos through the beam
+// ancestry — physical row (row / beam) * beam + src_t[p, row], an indexed
+// load replacing the TPU's one-hot ancestry matmul (:340-353) — plus the
+// current position, whose K/V come straight from k_t/v_t (:274-278). Scale
+// 1/sqrt(dh), float32 softmax and context, context cast to the input dtype.
 // The history reads never touch slot pos, which this kernel writes, so no
 // ordering between blocks is needed (the TPU's kw.wait() has no counterpart).
-// Bound: bytes — the history K/V rows it must read, pos·BK·d·2 elements per
-// layer (1 MB per position at bf16: ~31 MB, 9 us, at pos 30); its operations
-// are 4·BK·d per position, far below the ridge.
-// Design: each lane holds dh/32 query values in registers; per position a warp
-// reads the head's 64 contiguous K values (128 B) and reduces with shuffles;
-// the logits of all positions sit in shared memory for the softmax; the V pass
-// accumulates in registers. All BK·H warps are resident at once, which hides
-// the gather's latency.
+// Bound: bytes — each distinct (position, physical row) the ancestry reaches
+// is read once for K and once for V (at pos 30 of a random ancestry over
+// beam 8, ~0.66 of the BK·pos rows: ~21 MB at bf16, with q, k_t, v_t, the
+// ancestry and the context ~7.1 us, as chip_smoke.py counts it); its
+// operations, 4·BK·d a position, are far below the ridge.
+// Design: flash-decoding in one pass. A block is SA_ROWS consecutive rows
+// (one warp each) on one head, so the beams of an item share a block and the
+// ancestors they share come from L1; the grid puts the heads of a row group
+// side by side (blockIdx.x = head), so the blocks that read one cache row's
+// heads run together. The block stages the rows' physical ancestors for up
+// to SA_STAGE positions in shared memory with coalesced loads; grid and
+// shared memory do not depend on pos. In a warp, gw lanes (the power of two
+// covering the head row's 16-byte chunks: 8 for dh 64 in bf16) take one
+// position, so a warp instruction covers 32/gw positions; each lane issues
+// the K and V chunks of SA_UNROLL positions before it uses any, then folds
+// them into its online softmax (running max m, sum l, context acc) with one
+// max and one rescale for the batch; the lane groups merge theirs with
+// shuffles at the end. The kernel is bound by its instructions and the
+// gathers' latency as much as by bytes: at most 64 registers a thread keep
+// all 512 blocks of the flagship shape resident at once, and a lane holding
+// one chunk of two positions is what fits them without spilling (more
+// chunks a lane, or more positions, spilled and ran slower on the card:
+// PERF.md).
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void self_attention_kernel(
+constexpr int SA_ROWS = 8;     // rows a block, one warp each, all on one head
+constexpr int SA_STAGE = 64;   // ancestry positions staged in shared memory at a time
+constexpr int SA_UNROLL = 2;   // positions whose K and V a lane has in flight
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32 * SA_ROWS, 4) self_attention_kernel(
     const T* __restrict__ qkv, T* __restrict__ k_layer, T* __restrict__ v_layer,
     const int* __restrict__ src_t, T* __restrict__ ctx, int BK, int d, int H, int beam,
     int pos, float scale) {
   if (kTrivial) return;
-  extern __shared__ float lg_all[];
-  const int row = blockIdx.x, h = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dh = d / H, n = pos + 1;
-  float* lg = lg_all + h * n;
-  const T* q = qkv + (size_t)row * 3 * d + h * dh;
-  const T* kt = q + d;
-  const T* vt = q + 2 * d;
-  T* krow = k_layer + ((size_t)pos * BK + row) * d + h * dh;
-  T* vrow = v_layer + ((size_t)pos * BK + row) * d + h * dh;
+  using C = Chunk<T, VEC>;
+  constexpr int CW = C::CW, U = SA_UNROLL;
+  __shared__ int phys[SA_STAGE][SA_ROWS];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * SA_ROWS, row = row0 + w, h = blockIdx.x;
+  const int dh = d / H, nch = (dh + CW - 1) / CW;  // chunks of a head row, <= 32
+  int gw = 1;
+  while (gw < nch) gw <<= 1;
+  const int per = 32 / gw, grp = lane / gw, c = lane % gw, e0 = c * CW;
+  const bool live = row < BK, mine = live && c < nch;  // live is warp-uniform
+  const int ne = min(CW, dh - e0);
+  const size_t hoff = (size_t)h * dh + e0;
 
-  float qr[MAX_DH_REGS], kc[MAX_DH_REGS], vc[MAX_DH_REGS];
+  float q[CW], acc[CW];
+  const T* kt = qkv + (size_t)row * 3 * d + d + hoff;  // this row's k_t chunk; v_t at + d
+  {
+    C qc;
+    if (mine) qc.load(kt - d, ne);
 #pragma unroll
-  for (int i = 0; i < MAX_DH_REGS; ++i) {
-    const int e = lane + 32 * i;
-    const bool ok = e < dh;
-    qr[i] = ok ? to_f(q[e]) * scale : 0.f;
-    kc[i] = ok ? to_f(kt[e]) : 0.f;
-    vc[i] = ok ? to_f(vt[e]) : 0.f;
-    if (ok) { krow[e] = kt[e]; vrow[e] = vt[e]; }
-  }
-  const int base = (row / beam) * beam;
-  for (int p = 0; p < pos; ++p) {
-    const T* kp = k_layer + ((size_t)p * BK + base + src_t[(size_t)p * BK + row]) * d + h * dh;
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_DH_REGS; ++i) {
-      const int e = lane + 32 * i;
-      if (e < dh) s = fmaf(qr[i], to_f(kp[e]), s);
-    }
-    s = warp_sum(s);
-    if (lane == 0) lg[p] = s;
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < MAX_DH_REGS; ++i) s = fmaf(qr[i], kc[i], s);
-  s = warp_sum(s);
-  if (lane == 0) lg[pos] = s;
-  __syncwarp();
-  const float inv = warp_softmax_exp(lg, n);
-
-  float acc[MAX_DH_REGS];
-#pragma unroll
-  for (int i = 0; i < MAX_DH_REGS; ++i) acc[i] = lg[pos] * inv * vc[i];
-  for (int p = 0; p < pos; ++p) {
-    const T* vp = v_layer + ((size_t)p * BK + base + src_t[(size_t)p * BK + row]) * d + h * dh;
-    const float w = lg[p] * inv;
-#pragma unroll
-    for (int i = 0; i < MAX_DH_REGS; ++i) {
-      const int e = lane + 32 * i;
-      if (e < dh) acc[i] = fmaf(w, to_f(vp[e]), acc[i]);
+    for (int i = 0; i < CW; ++i) {
+      q[i] = mine ? qc[i] * scale : 0.f;
+      acc[i] = 0.f;
     }
   }
-  T* out = ctx + (size_t)row * d + h * dh;
+  if (mine && grp == 0) {
+    const size_t slot = ((size_t)pos * BK + row) * d + hoff;
+    copy_chunk<T, VEC, CW>(k_layer + slot, kt, ne);
+    copy_chunk<T, VEC, CW>(v_layer + slot, kt + d, ne);
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int s0 = 0; s0 <= pos; s0 += SA_STAGE) {
+    const int n = min(SA_STAGE, pos + 1 - s0);  // positions of this stage, pos itself last
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * SA_ROWS; i += blockDim.x) {
+      const int p = s0 + i / SA_ROWS, r = row0 + i % SA_ROWS;
+      phys[i / SA_ROWS][i % SA_ROWS] =
+          p < pos && r < BK ? (r / beam) * beam + src_t[(size_t)p * BK + r] : r;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int j0 = 0; j0 < n; j0 += per * U) {
+      C kc[U], vc[U];
 #pragma unroll
-  for (int i = 0; i < MAX_DH_REGS; ++i) {
-    const int e = lane + 32 * i;
-    if (e < dh) out[e] = from_f<T>(acc[i]);
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * per + grp;
+        if (mine && j < n) {
+          const int p = s0 + j;
+          const T* kp = p < pos ? k_layer + ((size_t)p * BK + phys[j][w]) * d + hoff : kt;
+          const T* vp = p < pos ? v_layer + ((size_t)p * BK + phys[j][w]) * d + hoff : kt + d;
+          kc[u].load(kp, ne);
+          vc[u].load(vp, ne);
+        }
+      }
+      float s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = 0.f;
+        if (mine && j0 + u * per + grp < n) {
+#pragma unroll
+          for (int i = 0; i < CW; ++i) s[u] = fmaf(q[i], kc[u][i], s[u]);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {  // sum over the gw lanes of a position
+        if (o < gw) {
+#pragma unroll
+          for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], o);
+        }
+      }
+      // one max and one rescale for the batch's positions of this lane group
+      // (uniform over the group); a lane past the head row keeps acc at 0
+      float mb = m;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (j0 + u * per + grp < n) mb = fmaxf(mb, s[u]);
+      if (mb != -INFINITY) {  // else no position yet for this group
+        const float a = rescale(m, mb);
+        l *= a;
+#pragma unroll
+        for (int i = 0; i < CW; ++i) acc[i] *= a;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j0 + u * per + grp < n) {
+            const float e = expf(s[u] - mb);
+            l += e;
+            if (mine) {
+#pragma unroll
+              for (int i = 0; i < CW; ++i) acc[i] = fmaf(e, vc[u][i], acc[i]);
+            }
+          }
+        }
+        m = mb;
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {  // merge the lane groups' (m, l, acc)
+    if (o >= gw) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m, o), lo = __shfl_xor_sync(0xffffffffu, l, o);
+      const float mn = fmaxf(m, mo), a = rescale(m, mn), b = rescale(mo, mn);
+      l = l * a + lo * b;
+#pragma unroll
+      for (int i = 0; i < CW; ++i) acc[i] = acc[i] * a + __shfl_xor_sync(0xffffffffu, acc[i], o) * b;
+      m = mn;
+    }
+  }
+  if (mine && grp == 0) {
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int i = 0; i < CW; ++i) acc[i] *= inv;
+    store_chunk<T, VEC, CW>(ctx + (size_t)row * d + hoff, acc, ne);
   }
 }
 
 // ---------------------------------------------------------------------------
-// (d) decoder_cross_attention, one block per row, one warp per head, over the
-// per-item encoder K/V kv_cross[layer] (Lenc, B, 2d): row r reads item
-// r / beam — an index, replacing the TPU's one-hot beam-expansion matmul
-// (fused_decoder.py:425-453). Scale 1/sqrt(dh), float32 softmax.
-// Bound: bytes — the layer's cross K/V is Lenc·B·2d elements (1 MB at bf16,
-// ~0.3 us) plus q and the context (1 MB); beams of one item share their K/V
-// rows through the cache.
-// Design: as (c), with Lenc = 16 positions.
+// (d) decoder_cross_attention (_decoder_kernel's cross-attention,
+// fused_decoder.py:425-453) over the per-item encoder K/V kv_cross[layer]
+// (Lenc, B, 2d): row r reads item r / beam — an index, replacing the TPU's
+// one-hot beam-expansion matmul. Scale 1/sqrt(dh), float32 softmax and
+// context, context cast to the input dtype.
+// Bound: bytes — q, the layer's cross K/V (Lenc·B·2d elements: 2 MB at Lenc
+// 16, bf16) and the context, each once: ~0.94 us at the flagship shapes; its
+// operations, 4·BK·d·Lenc, are far below the ridge.
+// Design: two kernels, as the launcher picks. bf16 with a head width of 16,
+// 32, 64 or 128 and 16-byte aligned pointers (the main path) runs on the
+// tensor cores, below (cross_attention_mma_kernel). Anything else (float32,
+// other widths, misaligned inputs) runs on the CUDA cores here: the beams of
+// an item share its K/V, so a block is one (head, item) and up to CA_ROWS of
+// the item's rows, one warp each (grid: heads × items × row groups; the
+// heads of an item side by side). It stages CA_TILE encoder positions of the
+// head's K and V in shared memory at a time, as float32 (rows padded to
+// ca_stride floats, so float4 reads of one column group across 8
+// consecutive positions hit 32 banks), with the rows' scaled q. A row's warp
+// computes its logits, one position a lane (float4 reads, four partial
+// sums), and carries the row's online-softmax max and sum in registers from
+// tile to tile, so shared memory depends on dh alone; each thread then owns
+// one float4 group of one row's context and accumulates it over the tile.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void cross_attention_kernel(
+constexpr int CA_ROWS = 8;                 // rows of one item a block, one warp each
+constexpr int CA_TILE = 32;                // encoder positions a tile: one a lane
+constexpr int CA_THREADS = 32 * CA_ROWS;   // >= CA_ROWS · 128/4 float4 groups of context
+
+// K/V/q rows in shared memory: dh rounded up to 4 floats, + 4
+__host__ __device__ constexpr int ca_stride(int dh) { return (dh + 3) / 4 * 4 + 4; }
+__host__ __device__ constexpr int ca_smem_floats(int dh) {
+  return (2 * CA_TILE + CA_ROWS) * ca_stride(dh) + CA_ROWS * (CA_TILE + 1) + CA_ROWS;
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// The chunk's CW values (zeros past the row's end) times mul as float4s at dst.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_chunk(float* dst, const Chunk<T, VEC>& c, float mul = 1.f) {
+#pragma unroll
+  for (int k = 0; k < Chunk<T, VEC>::CW; k += 4)
+    *reinterpret_cast<float4*>(dst + k) =
+        make_float4(c[k] * mul, c[k + 1] * mul, c[k + 2] * mul, c[k + 3] * mul);
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(CA_THREADS) cross_attention_kernel(
     const T* __restrict__ q2, const T* __restrict__ kv_layer, T* __restrict__ ctx,
     int B, int Lenc, int d, int H, int beam, float scale) {
   if (kTrivial) return;
-  extern __shared__ float lg_all[];
-  const int row = blockIdx.x, h = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dh = d / H, item = row / beam;
-  float* lg = lg_all + h * Lenc;
-  const T* q = q2 + (size_t)row * d + h * dh;
-  float qr[MAX_DH_REGS];
-#pragma unroll
-  for (int i = 0; i < MAX_DH_REGS; ++i) {
-    const int e = lane + 32 * i;
-    qr[i] = e < dh ? to_f(q[e]) * scale : 0.f;
+  using C = Chunk<T, VEC>;
+  constexpr int CW = C::CW;
+  extern __shared__ __align__(16) float ca_smem[];
+  const int h = blockIdx.x, item = blockIdx.y, r0 = blockIdx.z * CA_ROWS;
+  const int nr = min(CA_ROWS, beam - r0), tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dh = d / H, ks = ca_stride(dh), nch = (dh + CW - 1) / CW, nq = (dh + 3) / 4;
+  float* sk = ca_smem;                    // [CA_TILE][ks]
+  float* sv = sk + CA_TILE * ks;          // [CA_TILE][ks]
+  float* sq = sv + CA_TILE * ks;          // [CA_ROWS][ks], scaled
+  float* sp = sq + CA_ROWS * ks;          // [CA_ROWS][CA_TILE + 1], this tile's exp(s - m)
+  float* sa = sp + CA_ROWS * (CA_TILE + 1);  // [CA_ROWS], this tile's rescale; at the end 1/l
+  const size_t row0 = (size_t)item * beam + r0, hoff = (size_t)h * dh;
+
+  for (int i = tid; i < nr * nch; i += CA_THREADS) {
+    const int b = i / nch, e0 = (i % nch) * CW;
+    C qc;
+    qc.load(q2 + (row0 + b) * d + hoff + e0, dh - e0);
+    stage_chunk(sq + b * ks + e0, qc, scale);
   }
-  for (int p = 0; p < Lenc; ++p) {
-    const T* kp = kv_layer + ((size_t)p * B + item) * 2 * d + h * dh;
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_DH_REGS; ++i) {
-      const int e = lane + 32 * i;
-      if (e < dh) s = fmaf(qr[i], to_f(kp[e]), s);
+  const bool row_live = warp < nr;
+  float m = -INFINITY, l = 0.f;          // this warp's row
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int cb = tid / nq, ce = (tid % nq) * 4;  // this thread's context group
+  for (int p0 = 0; p0 < Lenc; p0 += CA_TILE) {
+    const int np = min(CA_TILE, Lenc - p0);
+    for (int i = tid; i < 2 * np * nch; i += CA_THREADS) {
+      const int v = i >= np * nch, k = i - v * np * nch, p = k / nch, e0 = (k % nch) * CW;
+      C c;
+      c.load(kv_layer + ((size_t)(p0 + p) * B + item) * 2 * d + v * d + hoff + e0, dh - e0);
+      stage_chunk((v ? sv : sk) + p * ks + e0, c);
     }
-    s = warp_sum(s);
-    if (lane == 0) lg[p] = s;
+    __syncthreads();
+    if (row_live) {
+      float s = -INFINITY;
+      if (lane < np) {
+        const float* qr = sq + warp * ks;
+        const float* kr = sk + lane * ks;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+        for (int e = 0; e < nq * 4; e += 4) {
+          const float4 a = lds4(qr + e), b = lds4(kr + e);
+          s0 = fmaf(a.x, b.x, s0);
+          s1 = fmaf(a.y, b.y, s1);
+          s2 = fmaf(a.z, b.z, s2);
+          s3 = fmaf(a.w, b.w, s3);
+        }
+        s = (s0 + s1) + (s2 + s3);
+      }
+      const float mn = fmaxf(m, warp_max(s));
+      const float e = lane < np ? expf(s - mn) : 0.f;
+      const float a = rescale(m, mn);
+      l = l * a + warp_sum(e);
+      m = mn;
+      sp[warp * (CA_TILE + 1) + lane] = e;
+      if (lane == 0) sa[warp] = a;
+    }
+    __syncthreads();
+    if (cb < nr) {
+      const float a = sa[cb];
+      float4 x = make_float4(acc.x * a, acc.y * a, acc.z * a, acc.w * a);
+      const float* pr = sp + cb * (CA_TILE + 1);
+#pragma unroll 4
+      for (int p = 0; p < np; ++p) {
+        const float wgt = pr[p];
+        const float4 vv = lds4(sv + p * ks + ce);
+        x.x = fmaf(wgt, vv.x, x.x);
+        x.y = fmaf(wgt, vv.y, x.y);
+        x.z = fmaf(wgt, vv.z, x.z);
+        x.w = fmaf(wgt, vv.w, x.w);
+      }
+      acc = x;
+    }
+    __syncthreads();
   }
-  __syncwarp();
-  const float inv = warp_softmax_exp(lg, Lenc);
-  float acc[MAX_DH_REGS] = {0.f, 0.f, 0.f, 0.f};
-  for (int p = 0; p < Lenc; ++p) {
-    const T* vp = kv_layer + ((size_t)p * B + item) * 2 * d + d + h * dh;
-    const float w = lg[p] * inv;
-#pragma unroll
-    for (int i = 0; i < MAX_DH_REGS; ++i) {
-      const int e = lane + 32 * i;
-      if (e < dh) acc[i] = fmaf(w, to_f(vp[e]), acc[i]);
+  if (row_live && lane == 0) sa[warp] = 1.f / l;
+  __syncthreads();
+  if (cb < nr) {
+    const float inv = sa[cb];
+    const float4 o = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+    T* out = ctx + (row0 + cb) * d + hoff + ce;
+    if (VEC) {
+      store4(out, o);
+    } else {  // dh need not be a multiple of 4 here
+      out[0] = from_f<T>(o.x);
+      if (ce + 1 < dh) out[1] = from_f<T>(o.y);
+      if (ce + 2 < dh) out[2] = from_f<T>(o.z);
+      if (ce + 3 < dh) out[3] = from_f<T>(o.w);
     }
   }
-  T* out = ctx + (size_t)row * d + h * dh;
+}
+
+// --- (d) on the tensor cores: bf16, head width 16, 32, 64 or 128 -----------
+// One warp is one (head, item) and up to CM_ROWS of the item's rows: one
+// m16 tile of q (rows past the item's beams are zero). It stages CM_TILE
+// encoder positions of the head's K and V and the tile's q in shared memory
+// with cp.async (rows padded by 16 bytes, so ldmatrix's eight row reads hit
+// 32 banks; positions past Lenc are zero-filled), then for every 16
+// positions: S = q·Kᵀ by mma.sync m16n8k16 (K rows are B's columns as they
+// lie), the online-softmax update on S's fragments (a row's 16 values sit in
+// the 4 lanes of a quad), and O += P·V with P from S's fragments in
+// registers and V through ldmatrix.trans. P enters the product as two bf16
+// terms, P = hi + lo (hi = bf16(P), lo = bf16(P - hi)), so the weights keep
+// about 16 bits as in the float32 softmax of the plain version.
+constexpr int CM_ROWS = 16;   // rows of one item a warp: one m16 tile
+constexpr int CM_TILE = 64;   // encoder positions staged at a time
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+// c += a·b, m16n8k16, bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 16 bytes from src to shared dst, or 16 zero bytes where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32) cross_attention_mma_kernel(
+    const bf16* __restrict__ q2, const bf16* __restrict__ kv_layer, bf16* __restrict__ ctx,
+    int B, int Lenc, int d, int beam, float scale) {
+  if (kTrivial) return;
+  constexpr int LD = DH + 8, KS = DH / 16, NT = DH / 8, CH = DH / 8;  // CH: 16-byte chunks a row
+  __shared__ __align__(128) bf16 sq[CM_ROWS][LD], sk[CM_TILE][LD], sv[CM_TILE][LD];
+  const int h = blockIdx.x, item = blockIdx.y, r0 = blockIdx.z * CM_ROWS;
+  const int nr = min(CM_ROWS, beam - r0), lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const size_t row0 = (size_t)item * beam + r0, hoff = (size_t)h * DH;
+
+  for (int i = lane; i < CM_ROWS * CH; i += 32) {
+    const int r = i / CH, c = i % CH;
+    cp_async16(&sq[r][c * 8], q2 + (row0 + min(r, nr - 1)) * d + hoff + c * 8, r < nr);
+  }
+  float o[NT][4];
 #pragma unroll
-  for (int i = 0; i < MAX_DH_REGS; ++i) {
-    const int e = lane + 32 * i;
-    if (e < dh) out[e] = from_f<T>(acc[i]);
+  for (int j = 0; j < NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  uint32_t qa[KS][4];
+  for (int p0 = 0; p0 < Lenc; p0 += CM_TILE) {
+    const int np = min(CM_TILE, Lenc - p0), ns = (np + 15) / 16;  // 16-position steps
+    __syncwarp();
+    for (int i = lane; i < ns * 16 * CH; i += 32) {
+      const int p = i / CH, c = i % CH;
+      const bf16* src = kv_layer + ((size_t)(p0 + min(p, np - 1)) * B + item) * 2 * d + hoff + c * 8;
+      cp_async16(&sk[p][c * 8], src, p < np);
+      cp_async16(&sv[p][c * 8], src + d, p < np);
+    }
+    cp_async_wait_all();
+    __syncwarp();
+    if (p0 == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) ldsm_x4(qa[kk], &sq[lane & 15][kk * 16 + 8 * (lane >> 4)]);
+    }
+    for (int st = 0; st < ns; ++st) {
+      const int n0 = st * 16;
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // positions n0 + 8·half
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, &sk[n0 + (lane & 7) + 8 * (lane >> 4)][kk * 16 + 8 * ((lane >> 3) & 1)]);
+        mma_bf16(s[0], qa[kk], b[0], b[1]);
+        mma_bf16(s[1], qa[kk], b[2], b[3]);
+      }
+      // s[half][0..1]: row g, positions n0 + 8·half + 2t + {0, 1}; [2..3]: row g + 8
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool ok = n0 + 8 * hf + 2 * t + (k & 1) < np;
+          s[hf][k] = ok ? s[hf][k] * scale : -INFINITY;
+          mx[k >> 1] = fmaxf(mx[k >> 1], s[hf][k]);
+        }
+      float a[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        a[rr] = rescale(m[rr], mx[rr]);
+        m[rr] = mx[rr];
+      }
+      uint32_t ph[4], pl[4];  // P as the A fragment of positions n0..n0 + 15, hi and lo
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float e0 = expf(s[hf][2 * rr] - m[rr]), e1 = expf(s[hf][2 * rr + 1] - m[rr]);
+          sum[rr] += e0 + e1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(e0, e1);
+          const float2 hf2 = __bfloat1622float2(hi);
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(e0 - hf2.x, e1 - hf2.y);
+          ph[2 * hf + rr] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[2 * hf + rr] = *reinterpret_cast<const uint32_t*>(&lo);
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 1);
+        sum[rr] += __shfl_xor_sync(0xffffffffu, sum[rr], 2);
+        l[rr] = l[rr] * a[rr] + sum[rr];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        o[j][0] *= a[0];
+        o[j][1] *= a[0];
+        o[j][2] *= a[1];
+        o[j][3] *= a[1];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, &sv[n0 + (lane & 7) + 8 * ((lane >> 3) & 1)][8 * j + 8 * (lane >> 4)]);
+        mma_bf16(o[j], ph, b[0], b[1]);
+        mma_bf16(o[j], pl, b[0], b[1]);
+        mma_bf16(o[j + 1], ph, b[2], b[3]);
+        mma_bf16(o[j + 1], pl, b[2], b[3]);
+      }
+    }
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = g + 8 * rr;
+    if (r < nr) {
+      bf16* out = ctx + (row0 + r) * d + hoff + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        store_pair(out + 8 * j, o[j][2 * rr] * inv[rr], o[j][2 * rr + 1] * inv[rr]);
+    }
   }
 }
 
@@ -1078,35 +1439,56 @@ int fd_add_layernorm(const float* y, const void* r, const float* gamma, const fl
   return last_error();
 }
 
+// Both attention kernels take the 16-byte chunk path where a head row is a
+// whole number of 16-byte chunks and every pointer starts on a 16-byte
+// boundary, and the 4-value path otherwise.
 int fd_self_attention(const void* qkv, void* k_layer, void* v_layer, const int* src_t,
                       void* ctx, int BK, int d, int H, int beam, int pos, float scale,
                       int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)H * (pos + 1) * sizeof(float);
+  const dim3 grid(H, (BK + SA_ROWS - 1) / SA_ROWS), block(32 * SA_ROWS);
+  const bool vec = (d / H * (dtype == 0 ? 4 : 2)) % 16 == 0 &&
+                   ((uintptr_t)qkv | (uintptr_t)k_layer | (uintptr_t)v_layer | (uintptr_t)ctx) % 16 == 0;
+#define FD_SA(T, V)                                                                            \
+  self_attention_kernel<T, V><<<grid, block, 0, s>>>((const T*)qkv, (T*)k_layer, (T*)v_layer,   \
+                                                     src_t, (T*)ctx, BK, d, H, beam, pos, scale)
   if (dtype == 0) {
-    self_attention_kernel<float><<<BK, 32 * H, smem, s>>>(
-        (const float*)qkv, (float*)k_layer, (float*)v_layer, src_t, (float*)ctx, BK, d, H,
-        beam, pos, scale);
+    if (vec) FD_SA(float, true); else FD_SA(float, false);
   } else {
-    self_attention_kernel<bf16><<<BK, 32 * H, smem, s>>>(
-        (const bf16*)qkv, (bf16*)k_layer, (bf16*)v_layer, src_t, (bf16*)ctx, BK, d, H,
-        beam, pos, scale);
+    if (vec) FD_SA(bf16, true); else FD_SA(bf16, false);
   }
+#undef FD_SA
   return last_error();
 }
 
-int fd_cross_attention(const void* q, const void* kv_layer, void* ctx, int BK, int B,
-                       int Lenc, int d, int H, int beam, float scale, int dtype,
-                       void* stream) {
+int fd_cross_attention(const void* q, const void* kv_layer, void* ctx, int B, int Lenc, int d,
+                       int H, int beam, float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)H * Lenc * sizeof(float);
-  if (dtype == 0) {
-    cross_attention_kernel<float><<<BK, 32 * H, smem, s>>>(
-        (const float*)q, (const float*)kv_layer, (float*)ctx, B, Lenc, d, H, beam, scale);
-  } else {
-    cross_attention_kernel<bf16><<<BK, 32 * H, smem, s>>>(
-        (const bf16*)q, (const bf16*)kv_layer, (bf16*)ctx, B, Lenc, d, H, beam, scale);
+  const int dh = d / H;
+  const bool aligned = ((uintptr_t)q | (uintptr_t)kv_layer | (uintptr_t)ctx) % 16 == 0;
+  if (dtype == 1 && aligned && (dh == 16 || dh == 32 || dh == 64 || dh == 128)) {
+    const dim3 grid(H, B, (beam + CM_ROWS - 1) / CM_ROWS);
+#define FD_CM(DH)                                                                              \
+  case DH:                                                                                     \
+    cross_attention_mma_kernel<DH><<<grid, 32, 0, s>>>((const bf16*)q, (const bf16*)kv_layer,   \
+                                                       (bf16*)ctx, B, Lenc, d, beam, scale);    \
+    break;
+    switch (dh) { FD_CM(16) FD_CM(32) FD_CM(64) FD_CM(128) }
+#undef FD_CM
+    return last_error();
   }
+  const dim3 grid(H, B, (beam + CA_ROWS - 1) / CA_ROWS), block(CA_THREADS);
+  const size_t smem = (size_t)ca_smem_floats(dh) * sizeof(float);  // <= 40 KB at dh 128
+  const bool vec = (dh * (dtype == 0 ? 4 : 2)) % 16 == 0 && aligned;
+#define FD_CA(T, V)                                                                            \
+  cross_attention_kernel<T, V><<<grid, block, smem, s>>>((const T*)q, (const T*)kv_layer,       \
+                                                         (T*)ctx, B, Lenc, d, H, beam, scale)
+  if (dtype == 0) {
+    if (vec) FD_CA(float, true); else FD_CA(float, false);
+  } else {
+    if (vec) FD_CA(bf16, true); else FD_CA(bf16, false);
+  }
+#undef FD_CA
   return last_error();
 }
 

@@ -57,7 +57,7 @@ FUSED_ACTIVATIONS = frozenset({"leaky_relu", "relu", "relu6", "gelu"})
 _ACT_CODE = {"none": 0, "leaky_relu": 1, "relu": 2, "relu6": 3, "gelu": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-6
-MAX_HEAD_DIM = 128   # the attention kernels hold dh/32 values per lane in 4 registers
+MAX_HEAD_DIM = 128   # a head row spans at most the 32 lanes of a warp, 4 values or more a lane
 # decoder_linear's wgmma kernel: N and K tiles (one 128-byte swizzle row of
 # bf16), the largest portable thread-block cluster, the H100's SMs
 LINEAR_BN = LINEAR_BK = 64
@@ -252,7 +252,7 @@ def _lib() -> ctypes.CDLL:
         "fd_linear": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
         "fd_add_layernorm": [P, P, P, P, P, P, I, I, I, I, Fl, P],
         "fd_self_attention": [P, P, P, P, P, I, I, I, I, I, Fl, I, P],
-        "fd_cross_attention": [P, P, P, I, I, I, I, I, I, Fl, I, P],
+        "fd_cross_attention": [P, P, P, I, I, I, I, I, Fl, I, P],
         "fd_logsoftmax_topk": [P, P, P, P, P, I, I, I, P],
     }
     for name, args in sigs.items():
@@ -381,9 +381,9 @@ def decoder_add_layernorm(y, r, gamma, beta, out_dtype):
 
 
 def _check_heads(d: int, num_heads: int) -> None:
-    if d % num_heads or d // num_heads > MAX_HEAD_DIM or num_heads > 32:
-        raise ValueError(f"attention kernels need d % H == 0, d/H <= {MAX_HEAD_DIM}, "
-                         f"H <= 32 (d={d}, H={num_heads})")
+    if num_heads < 1 or d % num_heads or d // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"attention kernels need d % H == 0 and d/H <= {MAX_HEAD_DIM} "
+                         f"(d={d}, H={num_heads})")
 
 
 def decoder_self_attention(qkv, k_self, v_self, layer: int, pos: int, src_t, beam: int,
@@ -433,8 +433,8 @@ def decoder_cross_attention(q, kv_cross, layer: int, beam: int, num_heads: int):
     check("kv_cross", kv_cross, (n, lenc, b, 2 * d), q.dtype, dev)
     ctx = q.new_empty((bk, d))
     rc = _lib().fd_cross_attention(
-        q.data_ptr(), kv_cross[layer].data_ptr(), ctx.data_ptr(), bk, b, lenc, d, num_heads,
-        beam, 1.0 / math.sqrt(d // num_heads), code, stream(dev))
+        q.data_ptr(), kv_cross[layer].data_ptr(), ctx.data_ptr(), b, lenc, d, num_heads, beam,
+        1.0 / math.sqrt(d // num_heads), code, stream(dev))
     launched(decoder_cross_attention, rc, _error_string)
     return ctx
 

@@ -1,5 +1,6 @@
-"""Time the decode step's products and LayerNorm, and the whole step, on the
-card through the wrappers a decode runs, for one checkout of the port:
+"""Time the decode step's products, LayerNorm and attention, and the whole
+step, on the card through the wrappers a decode runs, for one checkout of the
+port:
 
     python fpn_mt_image_captioning_torch/scripts/time_decode_kernels.py [--root=DIR]
 
@@ -8,7 +9,9 @@ imported (default: the one holding this file), so two versions of the port
 can be timed on one card in turns (parent, change, change, parent) with the
 same code. Everything it calls exists in every version since the decode step
 was ported: ``decoder_linear(x, w, b, act, out_f32)``,
-``decoder_add_layernorm``, ``pack_decoder_weights``, ``init_fused_cache``,
+``decoder_add_layernorm``, ``decoder_self_attention(qkv, k_self, v_self,
+layer, pos, src_t, beam, num_heads)``, ``decoder_cross_attention(q, kv_cross,
+layer, beam, num_heads)``, ``pack_decoder_weights``, ``init_fused_cache``,
 ``fused_decode_step``, ``utils.profiling.cuda_kernel_times``.
 
 Per case it prints the card's time a call (sum of kernel durations in the
@@ -16,7 +19,9 @@ CUDA profiler over ``ITERS`` calls) and the host's (CUDA events around
 ``ITERS`` calls, which on this host-bound loop time the host; median of
 ``REPS``), as one JSON line with the card's name and power limit. Shapes:
 the flagship decode (B·beam = 512 or 64 rows, d 512, dff 2048, 8 heads, 6
-layers, vocabulary 2000, bf16, seeded weights)."""
+layers, vocabulary 2000, bf16, seeded weights); self-attention at positions
+8, 30 and 59 of a seeded random ancestry (Lpad 64), cross-attention at Lenc
+16."""
 
 from __future__ import annotations
 
@@ -85,6 +90,17 @@ def main(argv) -> int:
         gamma, beta = 1 + rand(D, scale=0.1), rand(D, scale=0.1)
         out[f"add_layernorm_rows{m}"] = timed(
             lambda: fd.decoder_add_layernorm(y, r, gamma, beta, bf16))
+        lpad = 64
+        qkv = rand(m, 3 * D, dtype=bf16)
+        k_self, v_self = rand(NL, lpad, m, D, dtype=bf16), rand(NL, lpad, m, D, dtype=bf16)
+        src_t = torch.randint(0, BEAM, (lpad, m), generator=g, dtype=torch.int32).to(dev)
+        for pos in (8, 30, 59):
+            out[f"self_attention_pos{pos}_rows{m}"] = timed(lambda: fd.decoder_self_attention(
+                qkv, k_self, v_self, 2, pos, src_t, BEAM, H))
+        q, kv_cross = rand(m, D, dtype=bf16), rand(NL, LENC, m // BEAM, 2 * D, dtype=bf16)
+        out[f"cross_attention_rows{m}"] = timed(
+            lambda: fd.decoder_cross_attention(q, kv_cross, 2, BEAM, H))
+        del k_self, v_self
 
     with torch.device("meta"):
         model = Transformer(NL, D, H, DFF, 16, V, max_seq_len=MAX_LEN + 1,

@@ -1,10 +1,12 @@
 """The fused decode step's CUDA kernels against their plain PyTorch versions
 on the card, at the step's own linear and LayerNorm shapes (batch 8 and 64)
 and at small and ragged shapes that the flagship smoke run does not reach
-(odd M/N/K, every tile and split plan of the wgmma linear, head width 8 and
-128, position 0, a vocabulary whose totals exceed 48 KB of shared memory,
-exact ties), a CUDA-graph capture, a split-K product run twice and the
-wgmma linear's phase stamps. Needs a CUDA card and nvcc: every test here
+(odd M/N/K, every tile and split plan of the wgmma linear; attention at
+head widths 2, 10 and 128, positions 0 and Lpad - 1, ancestries shared and
+distinct, beam 1, Lenc 1 to 100, ragged row groups, pointers off a 16-byte
+boundary; a vocabulary whose totals exceed 48 KB of shared memory, exact
+ties), CUDA-graph captures, a split-K product run twice and the wgmma
+linear's phase stamps. Needs a CUDA card and nvcc: every test here
 skips on a machine without one. On the card (which has no JAX, so
 the JAX-side conftest is skipped):
 
@@ -162,30 +164,135 @@ def test_add_layernorm(dev, dtype, rows, d, r_f32):
     assert_close(got_t, want_t, dtype)
 
 
+def _ancestry(g, kind, lpad, b, beam, dev):
+    """src_t (lpad, b·beam) int32: "random" parents in [0, beam); "shared",
+    all beams of an item on one parent a position; "distinct", the beams of
+    an item on a permutation of the item's rows a position."""
+    if kind == "random":
+        src = torch.randint(0, beam, (lpad, b * beam), generator=g)
+    elif kind == "shared":
+        src = torch.randint(0, beam, (lpad, b, 1), generator=g).expand(lpad, b, beam)
+    else:
+        src = torch.argsort(torch.rand(lpad, b, beam, generator=g), dim=-1)
+    return src.reshape(lpad, b * beam).to(dev, torch.int32)
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary: the kernels take their 4-value path for it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (d, h, beam, b, lpad, pos, ancestry, misaligned): positions 0, 1, 7 of the
+# small shapes; position 0 and Lpad - 1 at Lpad 64; past one staged block of
+# ancestry (64 positions); head width 128, 10 (not a multiple of 8) and 2
+# (64 heads); beam 1; ancestries shared and distinct; row counts that are not
+# a multiple of the block's 8 rows (15, 9, 20); q/k_t/v_t off a 16-byte boundary
+SELF_ATTENTION_CASES = (
+    [(d, h, beam, b, 8, pos, "random", False)
+     for d, h, beam, b in [(32, 4, 3, 4), (256, 2, 2, 3), (64, 8, 1, 5)] for pos in (0, 1, 7)]
+    + [(512, 8, 8, 4, 64, 0, "random", False), (512, 8, 8, 4, 64, 63, "random", False),
+       (64, 2, 4, 3, 80, 70, "random", False), (256, 2, 8, 3, 64, 40, "random", False),
+       (40, 4, 3, 5, 16, 9, "random", False), (128, 64, 2, 2, 8, 5, "random", False),
+       (512, 8, 1, 9, 64, 63, "random", False), (512, 8, 8, 4, 64, 30, "shared", False),
+       (512, 8, 8, 4, 64, 30, "distinct", False), (64, 4, 5, 4, 16, 12, "random", False),
+       (512, 8, 8, 2, 64, 30, "random", True)])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d,h,beam,b", [(32, 4, 3, 4), (256, 2, 2, 3), (64, 8, 1, 5)])
-@pytest.mark.parametrize("pos", [0, 1, 7])
-def test_self_attention(dev, dtype, d, h, beam, b, pos):
-    g = torch.Generator().manual_seed(d + pos)
-    bk, lpad, n = b * beam, 8, 2
+@pytest.mark.parametrize("d,h,beam,b,lpad,pos,ancestry,misaligned", SELF_ATTENTION_CASES)
+def test_self_attention(dev, dtype, d, h, beam, b, lpad, pos, ancestry, misaligned):
+    g = torch.Generator().manual_seed(d + pos + lpad)
+    bk, n = b * beam, 2
     qkv = rand(g, bk, 3 * d, dtype=dtype)
+    if misaligned:
+        qkv = _misaligned(qkv)
     k_self, v_self = rand(g, n, lpad, bk, d, dtype=dtype), rand(g, n, lpad, bk, d, dtype=dtype)
-    src_t = torch.randint(0, beam, (lpad, bk), generator=g, dtype=torch.int32).to(dev)
+    src_t = _ancestry(g, ancestry, lpad, b, beam, dev)
     k1, v1, k2, v2 = k_self.clone(), v_self.clone(), k_self.clone(), v_self.clone()
+    before = fd.decoder_self_attention.launches
     got = fd.decoder_self_attention(qkv, k1, v1, 1, pos, src_t, beam, h)
+    assert fd.decoder_self_attention.launches == before + 1
     want = fd.decoder_self_attention_reference(qkv, k2, v2, 1, pos, src_t, beam, h)
     assert_close(got, want, dtype)
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
+# (d, h, beam, b, lenc, misaligned): Lenc 1, 17 and 100 (one tile of
+# positions, and several: 32 a tile on the CUDA cores, 64 on the tensor
+# cores); head widths 128, 64, 32 and 16 (bf16 on the tensor cores) and 10,
+# 8 and 2 (the CUDA cores); beam 1; beam 10 and 20 (two and three row groups
+# of an item on the CUDA cores, one and two m16 tiles on the tensor cores);
+# inputs off a 16-byte boundary (the CUDA cores)
+CROSS_ATTENTION_CASES = [
+    (32, 4, 3, 4, 4, False), (256, 2, 2, 3, 16, False), (64, 8, 1, 5, 1, False),
+    (512, 8, 8, 3, 1, False), (512, 8, 8, 3, 17, False), (512, 8, 8, 3, 100, False),
+    (256, 2, 8, 2, 40, False), (40, 4, 3, 5, 17, False), (128, 64, 2, 2, 5, False),
+    (512, 8, 1, 7, 64, False), (64, 2, 10, 3, 33, False), (512, 8, 8, 2, 16, True),
+    (64, 2, 20, 2, 70, False), (64, 4, 3, 2, 5, False)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d,h,beam,b,lenc", [(32, 4, 3, 4, 4), (256, 2, 2, 3, 16), (64, 8, 1, 5, 1)])
-def test_cross_attention(dev, dtype, d, h, beam, b, lenc):
+@pytest.mark.parametrize("d,h,beam,b,lenc,misaligned", CROSS_ATTENTION_CASES)
+def test_cross_attention(dev, dtype, d, h, beam, b, lenc, misaligned):
     g = torch.Generator().manual_seed(d + lenc)
     q = rand(g, b * beam, d, dtype=dtype)
     kv = rand(g, 2, lenc, b, 2 * d, dtype=dtype)
-    assert_close(fd.decoder_cross_attention(q, kv, 1, beam, h),
-                 fd.decoder_cross_attention_reference(q, kv, 1, beam, h), dtype)
+    if misaligned:
+        q, kv = _misaligned(q), _misaligned(kv)
+    before = fd.decoder_cross_attention.launches
+    got = fd.decoder_cross_attention(q, kv, 1, beam, h)
+    assert fd.decoder_cross_attention.launches == before + 1
+    assert_close(got, fd.decoder_cross_attention_reference(q, kv, 1, beam, h), dtype)
+
+
+def test_attention_in_cuda_graph(dev):
+    """Self-attention at positions 3 and 9 and cross-attention on layers 0
+    and 1, captured in one CUDA graph: each replay gives what the same
+    launches give eagerly from the same inputs, bit for bit, caches too."""
+    g = torch.Generator().manual_seed(11)
+    b, beam, d, h, lpad, lenc, bf16 = 4, 8, 512, 8, 16, 16, torch.bfloat16
+    bk = b * beam
+    qkv_a, qkv_b = rand(g, bk, 3 * d, dtype=bf16), rand(g, bk, 3 * d, dtype=bf16)
+    k_self, v_self = rand(g, 2, lpad, bk, d, dtype=bf16), rand(g, 2, lpad, bk, d, dtype=bf16)
+    src_t = _ancestry(g, "random", lpad, b, beam, dev)
+    q, kv = rand(g, bk, d, dtype=bf16), rand(g, 2, lenc, b, 2 * d, dtype=bf16)
+
+    def run(ks, vs):
+        return (fd.decoder_self_attention(qkv_a, ks, vs, 1, 3, src_t, beam, h),
+                fd.decoder_self_attention(qkv_b, ks, vs, 1, 9, src_t, beam, h),
+                fd.decoder_cross_attention(q, kv, 0, beam, h),
+                fd.decoder_cross_attention(q, kv, 1, beam, h))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(k_self.clone(), v_self.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run(k_self, v_self)
+    for seed in range(2):
+        g2 = torch.Generator().manual_seed(100 + seed)
+        for t in (qkv_a, qkv_b, q):
+            t.copy_(rand(g2, *t.shape, dtype=bf16))
+        k0, v0 = k_self.clone(), v_self.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        k_e, v_e = k0.clone(), v0.clone()
+        for got, want in zip(outs, run(k_e, v_e)):
+            assert torch.equal(got, want)
+        assert torch.equal(k_self, k_e) and torch.equal(v_self, v_e)
+        k_r, v_r = k0.clone(), v0.clone()
+        wants = (fd.decoder_self_attention_reference(qkv_a, k_r, v_r, 1, 3, src_t, beam, h),
+                 fd.decoder_self_attention_reference(qkv_b, k_r, v_r, 1, 9, src_t, beam, h),
+                 fd.decoder_cross_attention_reference(q, kv, 0, beam, h),
+                 fd.decoder_cross_attention_reference(q, kv, 1, beam, h))
+        for got, want in zip(outs, wants):
+            assert_close(got, want, bf16)
 
 
 @pytest.mark.parametrize("v,topk", [(40, 1), (300, 8), (13000, 10), (7, 7)])
@@ -219,6 +326,12 @@ def test_wrappers_reject_bad_inputs(dev):
     wb = torch.zeros(8, 8, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="16-byte"):
         fd.decoder_linear(xb, wb, torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="d % H"):   # 30 % 4, and a head of 129
+        fd.decoder_cross_attention(torch.zeros(4, 30, device=dev),
+                                   torch.zeros(1, 3, 2, 60, device=dev), 0, 2, 4)
+    with pytest.raises(ValueError, match="d/H"):
+        fd.decoder_cross_attention(torch.zeros(4, 129, device=dev),
+                                   torch.zeros(1, 3, 2, 258, device=dev), 0, 2, 1)
     with pytest.raises(ValueError, match="Lenc = 0"):
         fd.decoder_cross_attention(torch.zeros(4, 8, device=dev),
                                    torch.zeros(1, 0, 2, 16, device=dev), 0, 2, 2)
