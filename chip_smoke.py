@@ -16,8 +16,11 @@ the script exits non-zero without its last line):
   3. decode kernels vs plain — each hand-written kernel of the fused decode
      step held to its plain PyTorch version at the flagship decode shapes
      (B·beam = 512, d 512, 8 heads, dff 2048, 6 layers, Lpad 64, vocab
-     2000; self-attention at positions 1, 30 and 59, its cache writes
-     bitwise equal; cross-attention at Lenc 16 and 64): float32 at the JAX
+     2000; self-attention at positions 1, 8, 30 and 59, its cache writes
+     bitwise equal; cross-attention at Lenc 16 and 64; both again at head
+     width 256, d 512 over 2 heads, at position 30 and Lenc 16, and in bf16
+     over the 64 rows of a batch of 8, self-attention at 8, 30 and 59 and
+     cross-attention at Lenc 16 beside SDPA, with their bounds): float32 at the JAX
      tests' bar (atol 3e-4, ids equal), bfloat16 at |err| <= 1e-2 +
      1e-2·|plain| (one bf16 rounding of the result, 2^-8 relative); with
      each kernel's time beside its plain version's, the one PyTorch call for
@@ -28,13 +31,20 @@ the script exits non-zero without its last line):
      flagship encode (512², batch 64; blocks 0, 1, 11, 13 and 16 among them),
      float32 at atol 2e-4 + rtol 1e-3 and bfloat16 at 1e-2 + 1e-2·|plain|;
      with its device time, the plain version's, the eager
-     ``_InvertedResidual`` block's (cuDNN convs, float32 BatchNorm) as a
-     yardstick, and the bound;
+     ``_InvertedResidual`` block's (cuDNN convs, float32 BatchNorm) and the
+     same block on ``channels_last`` tensors as yardsticks, the plan, the
+     blocks an SM the card reaches (at least 2 in bfloat16, or it fails), and
+     the bound;
   5. whole backbone — the fused backbone against the plain fused backbone on
      8 images: float32 C3/C4 atol 2e-4, C5 2e-3, + rtol 1e-3; in bfloat16,
      where roundings that the summation order flips cascade through 17
      blocks, the kernel route may stray from the float32 result no further
      than the plain route in bfloat16 does (relative L2, 25 % + 1e-3);
+  5b. previous designs in turns — the two kernels redesigned for the H100
+     against their previous designs (``csrc/previous.cu``, each held to the
+     plain version too) on the same inputs, previous, present, present,
+     previous: the log-softmax + top-k at 512×2000, top 8, and
+     ``fused_ir_block`` in bfloat16 summed over one flagship encode;
   6. probes — the three probe entry points
      (``fpn_mt_image_captioning_torch/scripts/probe_*.py``; kernels in
      ``csrc/probes.cu`` and the decode step's on ``csrc/fused_decoder.cu``
@@ -51,6 +61,9 @@ the script exits non-zero without its last line):
      reorder, finished rows, the kernel's chosen tokens fed to both); scores
      within atol 3e-4 (float32) / 0.1 (bfloat16), ids equal wherever the
      plain version's neighbouring candidates are further apart than that;
+     then the same on the full-width model with 2 heads (head width 256),
+     and its ``predict_batch`` of 8 images with counters reset just before
+     and read just after, every decode kernel launched;
   8. small input — ``Pipeline.predict_batch`` of a small float32 model on the
      card against the same model on the CPU (plain versions): equal tokens;
   9. main path — ``Pipeline.predict_batch`` at full width (512² uint8 images,
@@ -129,7 +142,9 @@ PROBE_TPU_KERNELS = {
     "slab_copy_flat_loads": _SLAB_D_TPU, "slab_copy_flat_cp_async": _SLAB_D_TPU,
 }
 SIZE, N_BLOCKS, CLI_FILES, SERVER_REQUESTS = 512, 17, 70, 8
-SELF_POSITIONS, CROSS_LENCS = (1, 30, 59), (LENC, 64)   # where (c) and (d) are timed alone
+WIDE_H = 2    # heads of the wide-head checks: d 512 / 2 = head width 256
+SELF_POSITIONS, CROSS_LENCS = (1, 8, 30, 59), (LENC, 64)   # where (c) and (d) are timed alone
+SMALL_BK = 8 * BEAM   # the rows of a batch of 8, where (c) and (d) are timed too
 # the attention kernels' isolated device ms (phase_kernels, bf16), beside
 # their in-situ means per launch in the traced main path
 ISOLATED: dict[str, float] = {}
@@ -234,6 +249,77 @@ def ids_agree(name: str, got_i, want_s, want_i, tol: float) -> int:
     return int(clear.sum())
 
 
+def self_attention_bound(torch, src_t, pos, bk, dt_name):
+    """((ms, by), distinct rows) of (c) at ``pos`` over ``bk`` rows: q, k_t,
+    v_t, the context and the two cache writes, and K and V of each distinct
+    (position, physical row) the ancestry reaches, once each."""
+    esz = 2 if dt_name == "bfloat16" else 4
+    dev = src_t.device
+    phys = (torch.arange(bk, device=dev) // BEAM) * BEAM + src_t[:pos, :bk].long()
+    distinct = int(torch.unique(phys + bk * torch.arange(pos, device=dev)[:, None]).numel())
+    nbytes = (bk * 3 * D + 2 * distinct * D + bk * D + 2 * bk * D) * esz + pos * bk * 4
+    return bound(nbytes, 4 * bk * D * (pos + 1), dt_name), distinct
+
+
+def cross_attention_bound(lenc, items, dt_name):
+    """(ms, by) of (d) over ``items`` items' beams: q, the items' K/V and the
+    context, once each."""
+    esz = 2 if dt_name == "bfloat16" else 4
+    bk = items * BEAM
+    return bound((bk * D + lenc * items * 2 * D + bk * D) * esz, 4 * bk * D * lenc, dt_name)
+
+
+def attention_small_batch(fd, torch, dev, g):
+    """(c) at positions 8, 30 and 59 and (d) at Lenc 16 over the rows of a
+    batch of 8 (bf16): each held to its plain version, timed, with its bound,
+    and (d) beside SDPA."""
+    bf16, bk, items, lpad, layer = torch.bfloat16, SMALL_BK, SMALL_BK // BEAM, 64, 2
+    tol = dict(atol=1e-2, rtol=1e-2)
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(dev, bf16)
+    qkv, caches = rand(bk, 3 * D), (rand(NL, lpad, bk, D), rand(NL, lpad, bk, D))
+    src_t = torch.randint(0, BEAM, (lpad, bk), generator=g, dtype=torch.int32).to(dev)
+    line = {}
+    for pos in (8, 30, 59):
+        entry = attention_case(
+            fd, torch, f"decoder_self_attention[pos={pos},rows={bk}]", tol,
+            lambda k, v: fd.decoder_self_attention(qkv, k, v, layer, pos, src_t, BEAM, H),
+            lambda k, v: fd.decoder_self_attention_reference(qkv, k, v, layer, pos, src_t, BEAM, H),
+            caches)
+        (entry["bound_ms"], _), entry["distinct_rows"] = self_attention_bound(
+            torch, src_t, pos, bk, "bfloat16")
+        line[f"self_attention_pos{pos}_rows{bk}"] = entry
+    q, kv_cross = rand(bk, D), rand(NL, LENC, items, 2 * D)
+    entry = attention_case(fd, torch, f"decoder_cross_attention[Lenc={LENC},rows={bk}]", tol,
+                           lambda: fd.decoder_cross_attention(q, kv_cross, layer, BEAM, H),
+                           lambda: fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, H))
+    dh = D // H
+    qs = q.reshape(items, BEAM, H, dh).transpose(1, 2)
+    kx = kv_cross[layer, :, :, :D].reshape(LENC, items, H, dh).permute(1, 2, 0, 3).contiguous()
+    vx = kv_cross[layer, :, :, D:].reshape(LENC, items, H, dh).permute(1, 2, 0, 3).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    close(f"decoder_cross_attention[rows={bk}] library check",
+          sdpa(qs, kx, vx).transpose(1, 2).reshape(bk, D),
+          fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, H), atol=2e-2, rtol=2e-2)
+    entry["library_ms"], entry["library_wall_ms"] = bench(lambda: sdpa(qs, kx, vx))
+    entry["bound_ms"] = cross_attention_bound(LENC, items, "bfloat16")[0]
+    line[f"cross_attention_lenc{LENC}_rows{bk}"] = entry
+    return line
+
+
+def attention_case(fd, torch, label, tol, kernel, plain, caches=()):
+    """An attention kernel against its plain version on the same inputs
+    (each on its own copy of ``caches``, whose writes must be bitwise equal),
+    then both timed."""
+    mine, theirs = [c.clone() for c in caches], [c.clone() for c in caches]
+    err = close(label, kernel(*mine), plain(*theirs), **tol)
+    if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+        raise SmokeFailure(f"{label}: cache writes differ")
+    ms, wall = bench(lambda: kernel(*mine))
+    plain_ms, plain_wall = bench(lambda: plain(*theirs))
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "wall_ms": wall,
+            "plain_wall_ms": plain_wall}
+
+
 # ---------------------------------------------------------------------------
 def phase_kernels(fd, torch, dev):
     """Each kernel vs its plain version at the flagship shapes."""
@@ -306,7 +392,7 @@ def phase_kernels(fd, torch, dev):
                               "512 and 64 in the kernels line)",
                         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
 
-        # (c) self-attention at positions 1, 30 and 59 through a random ancestry,
+        # (c) self-attention at positions 1, 8, 30 and 59 through a random ancestry,
         # each with its own bound; beside it, as a yardstick only, SDPA over
         # K/V gathered beforehand (two calls, not the rule's library call)
         qkv = rand(BK, 3 * D, dtype=dt)
@@ -326,10 +412,8 @@ def phase_kernels(fd, torch, dev):
             entry = {"err": err, "ms": ms, "plain_ms": plain, "wall_ms": wall,
                      "plain_wall_ms": plain_wall}
             if not f32:
+                bnd, distinct = self_attention_bound(torch, src_t, pos, BK, dt_name)
                 phys = (torch.arange(BK, device=dev) // BEAM) * BEAM + src_t[:pos].long()
-                distinct = int(torch.unique(phys + BK * torch.arange(pos, device=dev)[:, None]).numel())
-                nbytes = (BK * 3 * D + 2 * distinct * D + BK * D + 2 * BK * D) * esz + pos * BK * 4
-                bnd = bound(nbytes, 4 * BK * D * (pos + 1), dt_name)
                 p_idx = torch.arange(pos, device=dev)[:, None]
                 heads = lambda t: t.reshape(pos + 1, BK, H, D // H).permute(1, 2, 0, 3).contiguous()
                 kg = heads(torch.cat([k1[layer][p_idx, phys], qkv[None, :, D:2 * D]]))
@@ -346,11 +430,18 @@ def phase_kernels(fd, torch, dev):
                 ISOLATED[f"decoder_self_attention_pos{pos}"] = ms
                 if pos == 30:
                     table["decoder_self_attention"] = dict(
-                        shape=f"BK={BK} d={D} H={H} pos={pos} bf16 (positions 1, 30 and 59 in "
-                              "the kernels line, each with its bound)",
+                        shape=f"BK={BK} d={D} H={H} pos={pos} bf16 (positions 1, 8, 30 and 59 "
+                              "in the kernels line, each with its bound)",
                         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=bnd)
             line[f"self_attention_pos{pos}_{dt_name}"] = entry
             del k1, v1, k2, v2
+        # head width 256 (d 512, 2 heads): bf16 on the fast kernel's 32 lanes,
+        # float32 on the wide kernel
+        line[f"self_attention_dh{D // WIDE_H}_pos30_{dt_name}"] = attention_case(
+            fd, torch, f"decoder_self_attention[dh={D // WIDE_H},pos=30,{dt_name}]", tol,
+            lambda k, v: fd.decoder_self_attention(qkv, k, v, layer, 30, src_t, BEAM, WIDE_H),
+            lambda k, v: fd.decoder_self_attention_reference(qkv, k, v, layer, 30, src_t, BEAM,
+                                                             WIDE_H), (k_self, v_self))
         del k_self, v_self
 
         # (d) cross-attention over the per-item encoder K/V, Lenc 16 and 64
@@ -376,8 +467,7 @@ def phase_kernels(fd, torch, dev):
                 lib_out = sdpa(qs, kx, vx).transpose(1, 2).reshape(BK, D)
                 close(f"{label} library check", lib_out, want, atol=2e-2, rtol=2e-2)
                 lib, lib_wall = bench(lambda: sdpa(qs, kx, vx))
-                nbytes = (BK * D + lenc * B * 2 * D + BK * D) * esz
-                bnd = bound(nbytes, 4 * BK * D * lenc, dt_name)
+                bnd = cross_attention_bound(lenc, B, dt_name)
                 entry.update(bound_ms=bnd[0], library_ms=lib, library_wall_ms=lib_wall)
                 ISOLATED[f"decoder_cross_attention_lenc{lenc}"] = ms
                 if lenc == LENC:
@@ -387,17 +477,17 @@ def phase_kernels(fd, torch, dev):
                               "the CUDA-core kernel)",
                         max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bnd)
             line[f"cross_attention_lenc{lenc}_{dt_name}"] = entry
+            if lenc == LENC:   # head width 256: the wide kernel
+                line[f"cross_attention_dh{D // WIDE_H}_lenc{lenc}_{dt_name}"] = attention_case(
+                    fd, torch, f"decoder_cross_attention[dh={D // WIDE_H},Lenc={lenc},{dt_name}]",
+                    tol, lambda: fd.decoder_cross_attention(q, kv_cross, layer, BEAM, WIDE_H),
+                    lambda: fd.decoder_cross_attention_reference(q, kv_cross, layer, BEAM, WIDE_H))
             del kv_cross
 
-    # (e) log-softmax + freeze + top-k: float32 logits spaced apart (no
-    # accidental near ties), plus exact ties planted on purpose
-    perm = torch.argsort(torch.rand(BK, V, generator=g), dim=1).float()
-    logits = (perm / V * 8 - 4).to(dev)
-    top = logits.argmax(1)
-    rows = torch.arange(16, device=dev)
-    logits[rows, V - 1 - rows] = logits[rows, top[:16]]          # exact duplicates
-    scores = rand(BK, 1)
-    finished = (torch.rand(BK, 1, generator=g) < 0.25).float().to(dev)
+    line.update(attention_small_batch(fd, torch, dev, g))
+
+    # (e) log-softmax + freeze + top-k
+    logits, scores, finished = topk_inputs(torch, dev)
     got_s, got_i = fd.decoder_logsoftmax_topk(logits, scores, finished, BEAM)
     want_s, want_i = fd.decoder_logsoftmax_topk_reference(logits, scores, finished, BEAM)
     err = close("decoder_logsoftmax_topk scores", got_s, want_s, atol=3e-4)
@@ -413,6 +503,84 @@ def phase_kernels(fd, torch, dev):
         bound=bound(BK * V * 4 + BK * 8 + BK * BEAM * 8, 6 * BK * V, "float32"))
     say("kernels", **line)
     return table
+
+
+def topk_inputs(torch, dev):
+    """(e)'s inputs at the flagship shape: float32 logits spaced apart (no
+    accidental near ties), exact ties planted on purpose, running scores and
+    a quarter of the rows finished."""
+    g = torch.Generator().manual_seed(4321)
+    perm = torch.argsort(torch.rand(BK, V, generator=g), dim=1).float()
+    logits = (perm / V * 8 - 4).to(dev)
+    top = logits.argmax(1)
+    rows = torch.arange(16, device=dev)
+    logits[rows, V - 1 - rows] = logits[rows, top[:16]]          # exact duplicates
+    scores = torch.randn(BK, 1, generator=g).to(dev)
+    finished = (torch.rand(BK, 1, generator=g) < 0.25).float().to(dev)
+    return logits, scores, finished
+
+
+def kernel_turns(previous, present, rounds: int = 2) -> dict:
+    """Device ms of ``previous`` and ``present`` in turns (previous, present,
+    present, previous, ``rounds`` times), each through ``bench``."""
+    runs = {"previous": [], "present": []}
+    for _ in range(rounds):
+        for name in ("previous", "present", "present", "previous"):
+            runs[name].append(bench(previous if name == "previous" else present,
+                                    iters=10, reps=2)[0])
+    return {**runs, "previous_ms": statistics.median(runs["previous"]),
+            "present_ms": statistics.median(runs["present"])}
+
+
+def phase_previous_in_turns(fd, fb, torch, dev):
+    """The two redesigned kernels against their previous designs
+    (``ops/previous.py``) on the same inputs, in turns: (e) at 512×2000, top
+    8, and ``fused_ir_block`` in bfloat16 at every distinct block shape of a
+    flagship encode, summed over the 17 launches for each turn. Each previous
+    kernel is held to the plain version as the present one is."""
+    from fpn_mt_image_captioning_torch.ops import previous as pv
+
+    logits, scores, finished = topk_inputs(torch, dev)
+    want_s, want_i = fd.decoder_logsoftmax_topk_reference(logits, scores, finished, BEAM)
+    prev_s, prev_i = pv.decoder_logsoftmax_topk_previous(logits, scores, finished, BEAM)
+    close("decoder_logsoftmax_topk_previous scores", prev_s, want_s, atol=3e-4)
+    if not torch.equal(prev_i, want_i):
+        raise SmokeFailure("decoder_logsoftmax_topk_previous: ids differ")
+    topk = kernel_turns(
+        lambda: pv.decoder_logsoftmax_topk_previous(logits, scores, finished, BEAM),
+        lambda: fd.decoder_logsoftmax_topk(logits, scores, finished, BEAM), rounds=3)
+
+    net = perturbed_backbone(torch)
+    packed = fb.packed_to(fb.pack_backbone_weights(net, torch.bfloat16), dev)
+    shapes = block_shapes(packed)
+    g = torch.Generator().manual_seed(31)
+    per_block, turns = {}, [0.0] * 8
+    for indices in distinct_blocks(shapes).values():
+        sh = shapes[indices[0]]
+        blk, meta = packed["blocks"][sh["index"]]
+        x = torch.randn(B, sh["hw"], sh["hw"], sh["cin"], generator=g).to(dev, torch.bfloat16)
+        kw = dict(stride=meta["stride"], residual=meta["residual"])
+        close(f"fused_ir_block_previous[block {sh['index']}]",
+              pv.fused_ir_block_previous(x, blk, **kw), fb.fused_ir_block_reference(x, blk, **kw),
+              atol=1e-2, rtol=1e-2)
+        t = kernel_turns(lambda: pv.fused_ir_block_previous(x, blk, **kw),
+                         lambda: fb.fused_ir_block(x, blk, **kw))
+        # the eight times in the order they were taken
+        order = [v for four in zip(t["previous"][0::2], t["present"][0::2], t["present"][1::2],
+                                   t["previous"][1::2]) for v in four]
+        turns = [a + len(indices) * b for a, b in zip(turns, order)]
+        per_block["_".join(map(str, indices))] = dict(previous_ms=t["previous_ms"],
+                                                      present_ms=t["present_ms"])
+        del x
+    labels = ["previous", "present", "present", "previous"] * 2
+    enc = {"previous": [v for n, v in zip(labels, turns) if n == "previous"],
+           "present": [v for n, v in zip(labels, turns) if n == "present"]}
+    say("previous_in_turns", order="previous, present, present, previous",
+        logsoftmax_topk=topk, fused_ir_block_per_encode=enc,
+        fused_ir_block_per_encode_median=dict(previous_ms=statistics.median(enc["previous"]),
+                                              present_ms=statistics.median(enc["present"])),
+        fused_ir_block_blocks=per_block)
+    return topk["previous_ms"], statistics.median(enc["previous"])
 
 
 def phase_linear_plans(fd, torch, dev):
@@ -451,8 +619,9 @@ def phase_linear_plans(fd, torch, dev):
     say("linear_plans", **line)
 
 
-def phase_whole_step(fd, torch, dev, pipe, dt_name):
-    """fused_decode_step vs fused_decode_step_reference, 8 synchronised steps."""
+def phase_whole_step(fd, torch, dev, pipe, dt_name, tag=""):
+    """fused_decode_step vs fused_decode_step_reference, 8 synchronised steps
+    (the line ``whole_step_<dtype><tag>``)."""
     dt = getattr(torch, dt_name)
     tol = 3e-4 if dt_name == "float32" else 0.1
     model = pipe.transformer
@@ -494,9 +663,33 @@ def phase_whole_step(fd, torch, dev, pipe, dt_name):
         packed, cache_k, x, src_t, 8, scores, finished, topk=BEAM, **kw), iters=5, reps=3)
     plain = bench(lambda: fd.fused_decode_step_reference(
         packed, cache_r, x, src_t, 8, scores, finished, topk=BEAM, **kw), iters=5, reps=3)
-    say(f"whole_step_{dt_name}", max_abs_err=worst, cache_err=cache_err, ids_compared=compared,
+    say(f"whole_step_{dt_name}{tag}", num_heads=model.num_heads, max_abs_err=worst, cache_err=cache_err, ids_compared=compared,
         ids_total=8 * BK * BEAM, pos=8, step_device_ms=step[0], step_wall_ms=step[1],
         plain_device_ms=plain[0], plain_wall_ms=plain[1])
+
+
+def phase_wide_heads(fd, torch, dev, pipe):
+    """``predict_batch`` of 8 images on a full-width pipeline with 2 heads
+    (head width 256: self-attention on the fast kernel's 32 lanes,
+    cross-attention on the wide kernel), counters reset just before and
+    read just after: every decode kernel launched, steps × its launches a
+    step."""
+    import numpy as np
+
+    images = np.random.default_rng(88).integers(0, 256, (8, SIZE, SIZE, 3), dtype=np.uint8)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    seqs, lengths = pipe.predict_batch(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = fd.decoder_logsoftmax_topk.launches
+    check_decode_counts(fd, decode_per_step(fd), steps)
+    if seqs.shape != (8, MAX_LEN) or not ((lengths >= 0) & (lengths <= MAX_LEN)).all() \
+            or (seqs < 0).any() or (seqs >= V).any():
+        raise SmokeFailure("wide heads: tokens or lengths out of range")
+    say("wide_heads_main_path", batch=8, d_model=D, num_heads=pipe.transformer.num_heads,
+        head_width=D // pipe.transformer.num_heads, wall_s=wall, decode_steps=steps,
+        launches=read_all_counts(), caption0=pipe.to_caption(seqs[0], lengths[0])[:60])
 
 
 def phase_small_input(torch, dev, Config, Pipeline, tokenizer):
@@ -681,6 +874,16 @@ def block_shapes(packed) -> list[dict]:
     return out
 
 
+def distinct_blocks(shapes) -> dict:
+    """Indices of the blocks of each distinct shape: a shape that repeats is
+    timed once and counted n times."""
+    distinct = {}
+    for sh in shapes:
+        key = (sh["hw"], sh["cin"], sh["cexp"], sh["cout"], sh["stride"], sh["residual"])
+        distinct.setdefault(key, []).append(sh["index"])
+    return distinct
+
+
 def block_bound_parts(sh: dict, esz: int, dt_name: str) -> tuple[float, float]:
     """(bytes ms, operations ms) of one block: the input, the weights and the
     output moved once each; expand over the input pixels, depthwise and
@@ -703,18 +906,15 @@ def phase_backbone_kernels(fb, torch, dev):
 
     net = perturbed_backbone(torch)
     shapes = block_shapes(fb.pack_backbone_weights(net, torch.float32))
-    distinct = {}
-    for sh in shapes:   # blocks that repeat a shape are timed once, counted n times
-        key = (sh["hw"], sh["cin"], sh["cexp"], sh["cout"], sh["stride"], sh["residual"])
-        distinct.setdefault(key, []).append(sh["index"])
+    distinct = distinct_blocks(shapes)
     g = torch.Generator().manual_seed(31)
     rows, totals = {}, {}
     for dt_name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         f32 = dt == torch.float32
         tol = dict(atol=2e-4, rtol=1e-3) if f32 else dict(atol=1e-2, rtol=1e-2)
         packed = fb.packed_to(fb.pack_backbone_weights(net, dt), dev)
-        tot = dict(ms=0.0, plain_ms=0.0, eager_ms=0.0, bound_ms=0.0, bytes_bound_ms=0.0,
-                   bytes_bound_blocks_ms=0.0, max_abs_err=0.0)
+        tot = dict(ms=0.0, plain_ms=0.0, eager_ms=0.0, channels_last_ms=0.0, bound_ms=0.0,
+                   bytes_bound_ms=0.0, bytes_bound_blocks_ms=0.0, max_abs_err=0.0)
         for indices in distinct.values():
             sh = shapes[indices[0]]
             blk, meta = packed["blocks"][sh["index"]]
@@ -730,13 +930,29 @@ def phase_backbone_kernels(fb, torch, dev):
             eager_block = cast_for_inference(
                 copy.deepcopy(getattr(net, net._blocks[sh["index"]][0])), dt).to(dev)
             xc = x.permute(0, 3, 1, 2).contiguous()
+            # the same cuDNN block on channels_last tensors: NHWC as the kernel
+            # reads it, cuDNN's own fastest layout for these convolutions
+            xl = xc.to(memory_format=torch.channels_last)
             with torch.no_grad():
                 eager, _ = bench(lambda: eager_block(xc), iters=5, reps=2)
-            del eager_block, xc, x
+                ref = eager_block(xc).float()
+                eager_block = eager_block.to(memory_format=torch.channels_last)
+                rel = ((eager_block(xl).float() - ref).norm() / ref.norm()).item()
+                if rel > 2e-2:   # the same block, another layout: the same function
+                    raise SmokeFailure(f"channels_last block {sh['index']},{dt_name}: "
+                                       f"relative L2 {rel:.3e} from the contiguous block")
+                chain, _ = bench(lambda: eager_block(xl), iters=5, reps=2)
+                del ref
+            del eager_block, xc, xl, x
+            pixels = B * (sh["hw"] // sh["stride"]) ** 2
+            occupancy = fb.block_occupancy(sh["cin"], sh["cout"], sh["stride"], dt, sh["expand"],
+                                           pixels)
+            if not f32 and occupancy < 2:
+                raise SmokeFailure(f"fused_ir_block block {sh['index']}: {occupancy} block an SM")
             t_bytes, t_ops = block_bound_parts(sh, 4 if f32 else 2, dt_name)
             n = len(indices)
             for k, v in (("ms", ms), ("plain_ms", plain), ("eager_ms", eager),
-                         ("bound_ms", max(t_bytes, t_ops))):
+                         ("channels_last_ms", chain), ("bound_ms", max(t_bytes, t_ops))):
                 tot[k] += n * v
             tot["bytes_bound_ms"] += n * t_bytes
             if t_bytes >= t_ops:
@@ -745,7 +961,9 @@ def phase_backbone_kernels(fb, torch, dev):
             rows[f"{dt_name}_blocks_{'_'.join(map(str, indices))}"] = dict(
                 shape=f"{sh['hw']}² {sh['cin']}→{sh['cexp']}→{sh['cout']} s{sh['stride']}"
                       f"{' +res' if sh['residual'] else ''}",
-                max_abs_err=err, ms=ms, plain_ms=plain, eager_ms=eager,
+                max_abs_err=err, ms=ms, plain_ms=plain, eager_ms=eager, channels_last_ms=chain,
+                blocks_per_sm=occupancy, plan=fb.tile_plan(
+                    sh["cin"], sh["cout"], sh["stride"], dt, sh["expand"], pixels)._asdict(),
                 bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes_bound_ms=t_bytes)
         totals[dt_name] = tot
@@ -754,7 +972,7 @@ def phase_backbone_kernels(fb, torch, dev):
     return dict(shape=f"the 17 blocks of one encode, batch {B}, {SIZE}², bf16 (sums over the "
                       "17 launches; per-block rows in the backbone_kernels line)",
                 max_abs_err=bf["max_abs_err"], ms=bf["ms"], plain_ms=bf["plain_ms"],
-                eager_ms=bf["eager_ms"], library_ms=None,
+                eager_ms=bf["eager_ms"], channels_last_ms=bf["channels_last_ms"], library_ms=None,
                 bound=(bf["bound_ms"], "bytes" if bf["bytes_bound_blocks_ms"] >= 0.5 * bf["bound_ms"]
                        else "operations"))
 
@@ -1151,6 +1369,9 @@ def main() -> int:
     phase_linear_plans(fd, torch, dev)
     table["fused_ir_block"] = phase_backbone_kernels(fb, torch, dev)
     phase_backbone_whole(fb, torch, dev)
+    previous = phase_previous_in_turns(fd, fb, torch, dev)
+    table["decoder_logsoftmax_topk"]["previous_ms"] = previous[0]
+    table["fused_ir_block"]["previous_ms"] = previous[1]
     probe_table, probe_counts = phase_probes(torch, dev)
     table.update(probe_table)
 
@@ -1159,6 +1380,11 @@ def main() -> int:
     pipe = build()
     for dt_name in ("float32", "bfloat16"):
         phase_whole_step(fd, torch, dev, pipe, dt_name)
+    wide = build(num_heads=WIDE_H)   # head width 256
+    for dt_name in ("float32", "bfloat16"):
+        phase_whole_step(fd, torch, dev, wide, dt_name, tag=f"_dh{D // WIDE_H}")
+    phase_wide_heads(fd, torch, dev, wide)
+    del wide
     phase_small_input(torch, dev, Config, Pipeline, tokenizer)
     counts, eager64 = phase_main(fd, torch, dev, pipe)
 

@@ -69,51 +69,15 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide sum / max; every thread gets the result. blockDim.x is a
-// multiple of 32, at most 1024.
-__device__ float block_sum(float v) {
-  __shared__ float part[32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) part[wid] = v;
-  __syncthreads();
-  v = lane < nw ? part[lane] : 0.f;
-  return warp_sum(v);
+// Whether (v, i) comes before (ov, oi): the larger value, and on equal values
+// the lower index (lax.top_k's order).
+__device__ __forceinline__ bool tk_better(float v, int i, float ov, int oi) {
+  return v > ov || (v == ov && i < oi);
 }
 
-__device__ float block_max(float v) {
-  __shared__ float part[32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();
-  if (lane == 0) part[wid] = v;
-  __syncthreads();
-  v = lane < nw ? part[lane] : -INFINITY;
-  return warp_max(v);
-}
-
-// (value, index) pair that wins: the larger value, and on equal values the
-// lower index (lax.top_k's order).
+// (v, i) becomes (ov, oi) where that pair comes first.
 __device__ __forceinline__ void arg_better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-}
-
-__device__ void block_argmax(float& v, int& i) {
-  __shared__ float pv[32];
-  __shared__ int pi[32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    arg_better(v, i, __shfl_xor_sync(0xffffffffu, v, o), __shfl_xor_sync(0xffffffffu, i, o));
-  __syncthreads();
-  if (lane == 0) { pv[wid] = v; pi[wid] = i; }
-  __syncthreads();
-  v = lane < nw ? pv[lane] : -INFINITY;
-  i = lane < nw ? pi[lane] : 0x7fffffff;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    arg_better(v, i, __shfl_xor_sync(0xffffffffu, v, o), __shfl_xor_sync(0xffffffffu, i, o));
+  if (tk_better(ov, oi, v, i)) { v = ov; i = oi; }
 }
 
 enum { ACT_NONE = 0, ACT_LEAKY = 1, ACT_RELU = 2, ACT_RELU6 = 3, ACT_GELU = 4 };
@@ -744,7 +708,8 @@ __device__ __forceinline__ float rescale(float a, float m) {
 // all 512 blocks of the flagship shape resident at once, and a lane holding
 // one chunk of two positions is what fits them without spilling (more
 // chunks a lane, or more positions, spilled and ran slower on the card:
-// PERF.md).
+// PERF.md). A head row of more than 32 chunks goes to
+// self_attention_wide_kernel instead (the launcher picks by width).
 // ---------------------------------------------------------------------------
 constexpr int SA_ROWS = 8;     // rows a block, one warp each, all on one head
 constexpr int SA_STAGE = 64;   // ancestry positions staged in shared memory at a time
@@ -882,8 +847,9 @@ __global__ void __launch_bounds__(32 * SA_ROWS, 4) self_attention_kernel(
 // operations, 4·BK·d·Lenc, are far below the ridge.
 // Design: two kernels, as the launcher picks. bf16 with a head width of 16,
 // 32, 64 or 128 and 16-byte aligned pointers (the main path) runs on the
-// tensor cores, below (cross_attention_mma_kernel). Anything else (float32,
-// other widths, misaligned inputs) runs on the CUDA cores here: the beams of
+// tensor cores, below (cross_attention_mma_kernel); head widths above 128 run
+// the wide kernel (cross_attention_wide_kernel). Anything else (float32,
+// other widths up to 128, misaligned inputs) runs on the CUDA cores here: the beams of
 // an item share its K/V, so a block is one (head, item) and up to CA_ROWS of
 // the item's rows, one warp each (grid: heads × items × row groups; the
 // heads of an item side by side). It stages CA_TILE encoder positions of the
@@ -1166,52 +1132,462 @@ __global__ void __launch_bounds__(32) cross_attention_mma_kernel(
   }
 }
 
+// --- (c) and (d) for head rows wider than their fast kernels reach ---------
+// Any head width, dtype and alignment: self-attention where a head row is
+// more than 32 chunks (bf16 above 256 values on 16-byte chunks; float32, or
+// a misaligned input, above 128), cross-attention above 128 values. The
+// grids and row groups are the fast kernels'; one warp is one row, and its
+// lanes stride over the row's chunks, so no register array grows with the
+// width. Positions go in stages of WA_STAGE: the warp computes the stage's
+// logits (each lane's partial dot products, one warp sum a position) into
+// shared memory, takes the stage's max and rescale once, and then each lane
+// adds the stage's weighted V rows into its chunks of the context. Between
+// stages the context waits in a float32 scratch row (the wrapper's buffer,
+// read and written by the lane that owns the chunk, so it stays in L1/L2).
+// Bound: the same bytes as the fast kernels; q is read again for every
+// position from L1.
+constexpr int WA_ROWS = 8;    // rows a block, one warp each
+constexpr int WA_STAGE = 64;  // positions a stage
+
+// One stage of one row: n positions whose K and V rows kv(j, false) and
+// kv(j, true) give, folded into (m, l) and the context (acc between stages,
+// out after the last). sw holds this warp's WA_STAGE logits.
+template <typename T, bool VEC, typename KV>
+__device__ __forceinline__ void wide_stage(const T* q, float* acc, T* out, int dh, int n,
+                                           bool first, bool last, float scale, float* sw,
+                                           float& m, float& l, KV kv) {
+  using C = Chunk<T, VEC>;
+  constexpr int CW = C::CW;
+  const int lane = threadIdx.x & 31, nch = (dh + CW - 1) / CW;
+  float mb = m;
+  for (int j = 0; j < n; ++j) {
+    const T* kp = kv(j, false);
+    float s = 0.f;
+    for (int c = lane; c < nch; c += 32) {
+      const int e0 = c * CW;
+      C qc, kc;
+      qc.load(q + e0, dh - e0);
+      kc.load(kp + e0, dh - e0);
+#pragma unroll
+      for (int i = 0; i < CW; ++i) s = fmaf(qc[i], kc[i], s);
+    }
+    s = warp_sum(s) * scale;
+    if (lane == 0) sw[j] = s;
+    mb = fmaxf(mb, s);
+  }
+  __syncwarp();
+  const float a = rescale(m, mb);
+  float part = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    const float e = expf(sw[j] - mb);
+    sw[j] = e;
+    part += e;
+  }
+  l = l * a + warp_sum(part);
+  m = mb;
+  __syncwarp();
+  const float inv = 1.f / l;  // the last stage's
+  for (int c = lane; c < nch; c += 32) {
+    const int e0 = c * CW, ne = min(CW, dh - e0);
+    float o[CW];
+#pragma unroll
+    for (int i = 0; i < CW; ++i) o[i] = first || i >= ne ? 0.f : acc[e0 + i] * a;
+    for (int j = 0; j < n; ++j) {
+      C vc;
+      vc.load(kv(j, true) + e0, ne);
+      const float e = sw[j];
+#pragma unroll
+      for (int i = 0; i < CW; ++i) o[i] = fmaf(e, vc[i], o[i]);
+    }
+    if (last) {
+#pragma unroll
+      for (int i = 0; i < CW; ++i) o[i] *= inv;
+      store_chunk<T, VEC, CW>(out + e0, o, ne);
+    } else {
+#pragma unroll
+      for (int i = 0; i < CW; ++i)
+        if (i < ne) acc[e0 + i] = o[i];
+    }
+  }
+  __syncwarp();  // the next stage rewrites sw
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32 * WA_ROWS) self_attention_wide_kernel(
+    const T* __restrict__ qkv, T* __restrict__ k_layer, T* __restrict__ v_layer,
+    const int* __restrict__ src_t, T* __restrict__ ctx, float* __restrict__ acc, int BK, int d,
+    int H, int beam, int pos, float scale) {
+  if (kTrivial) return;
+  constexpr int CW = Chunk<T, VEC>::CW;
+  __shared__ int phys[WA_STAGE][WA_ROWS];
+  __shared__ float sw[WA_ROWS][WA_STAGE];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.y * WA_ROWS, row = row0 + w, h = blockIdx.x;
+  const int dh = d / H, nch = (dh + CW - 1) / CW;
+  const bool live = row < BK;  // warp-uniform
+  const size_t hoff = (size_t)h * dh, roff = (size_t)row * d + hoff;
+  const T* q = qkv + (size_t)row * 3 * d + hoff;  // k_t at + d, v_t at + 2d
+  if (live) {
+    const size_t slot = ((size_t)pos * BK + row) * d + hoff;
+    for (int c = lane; c < nch; c += 32) {
+      const int e0 = c * CW;
+      copy_chunk<T, VEC, CW>(k_layer + slot + e0, q + d + e0, dh - e0);
+      copy_chunk<T, VEC, CW>(v_layer + slot + e0, q + 2 * d + e0, dh - e0);
+    }
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int s0 = 0; s0 <= pos; s0 += WA_STAGE) {
+    const int n = min(WA_STAGE, pos + 1 - s0);  // pos itself last
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * WA_ROWS; i += blockDim.x) {
+      const int p = s0 + i / WA_ROWS, r = row0 + i % WA_ROWS;
+      phys[i / WA_ROWS][i % WA_ROWS] =
+          p < pos && r < BK ? (r / beam) * beam + src_t[(size_t)p * BK + r] : r;
+    }
+    __syncthreads();
+    if (!live) continue;
+    wide_stage<T, VEC>(q, acc + roff, ctx + roff, dh, n, s0 == 0, s0 + WA_STAGE > pos, scale,
+                       sw[w], m, l, [&](int j, bool v) -> const T* {
+                         const int p = s0 + j;
+                         if (p == pos) return q + (v ? 2 : 1) * d;
+                         return (v ? v_layer : k_layer) + ((size_t)p * BK + phys[j][w]) * d + hoff;
+                       });
+  }
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32 * WA_ROWS) cross_attention_wide_kernel(
+    const T* __restrict__ q2, const T* __restrict__ kv_layer, T* __restrict__ ctx,
+    float* __restrict__ acc, int B, int Lenc, int d, int H, int beam, float scale) {
+  if (kTrivial) return;
+  __shared__ float sw[WA_ROWS][WA_STAGE];
+  const int w = threadIdx.x >> 5, h = blockIdx.x, item = blockIdx.y;
+  const int r = blockIdx.z * WA_ROWS + w;
+  if (r >= beam) return;  // nothing below syncs the block
+  const int dh = d / H;
+  const size_t hoff = (size_t)h * dh, roff = ((size_t)item * beam + r) * d + hoff;
+  float m = -INFINITY, l = 0.f;
+  for (int s0 = 0; s0 < Lenc; s0 += WA_STAGE) {
+    wide_stage<T, VEC>(q2 + roff, acc + roff, ctx + roff, dh, min(WA_STAGE, Lenc - s0), s0 == 0,
+                       s0 + WA_STAGE >= Lenc, scale, sw[w], m, l,
+                       [&](int j, bool v) -> const T* {
+                         return kv_layer + ((size_t)(s0 + j) * B + item) * 2 * d + v * d + hoff;
+                       });
+  }
+}
+
 // ---------------------------------------------------------------------------
-// (e) decoder_logsoftmax_topk, one block per row (_decoder_kernel's final
-// cell, fused_decoder.py:497-526): max and logsumexp over V; the beam freeze
+// (e) decoder_logsoftmax_topk (_decoder_kernel's final cell,
+// fused_decoder.py:497-526): max and logsumexp over V; the beam freeze
 // lp = fin*pad_row + (1-fin)*lp with pad_row = 0 at column 0 and -1e9
 // elsewhere (so a finished row carries its score on the pad token); + the
 // row's running score; then the top `topk` (score, id) pairs in descending
-// order, ties to the LOWEST id, by iterated block arg-max.
-// Bound: bytes — reads BK·V float32 logits (4.1 MB at V 2000, ~1.2 us).
-// Design: the row's totals are staged in shared memory (V·4 bytes); each of
-// the topk rounds is one block arg-max and knocks its winner out with -1e30.
+// order, ties to the LOWEST id.
+// Bound: bytes — reads BK·V float32 logits once (4.1 MB at V 2000, ~1.2 us).
+// Design: one block of TK_WARPS warps a row, so a row's serial work is short
+// and an SM holds enough warps to hide its latencies. Where V is a multiple
+// of 4 up to 512·TK_HOLD and the logits start on 16 bytes (the main path's
+// V 2000), each thread reads its values once into registers (TK_HOLD
+// float4); otherwise it streams them, keeps its best TK_NV in a sorted list,
+// and the later reads come from L1/L2. The max, then the sum of exponentials,
+// are shuffle reductions and one exchange across the warps in shared memory.
+// Then a threshold instead of a merge of every thread's values: each warp
+// sorts its threads' best totals (a bitonic network over the lanes), two
+// bitonic merges of the warps' best 8 give T, the topk-th best thread's
+// best, which at least topk values reach. Only values at or above T (at most
+// topk·TK_NV, a handful on random logits) go to shared memory, and one warp
+// writes each at its rank, a count over the few of them (or, past 32, takes
+// topk rounds). Totals are the plain version's float expression, and every
+// comparison is (total desc, id asc): values that the subtraction of lse
+// rounds to one total tie there and go to the lowest id, as in the
+// reference (a pre-selection on raw logits would not). topk above 8 runs one warp a row, topk rounds over the row,
+// each taking the best total strictly after the previous round's winner in
+// that order.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256) logsoftmax_topk_kernel(
-    const float* __restrict__ logits, const float* __restrict__ scores,
-    const float* __restrict__ fin, float* __restrict__ out_s, int* __restrict__ out_i,
-    int V, int topk) {
-  extern __shared__ float tot[];
-  const int row = blockIdx.x;
-  if (kTrivial) {
-    for (int j = threadIdx.x; j < topk; j += blockDim.x) out_s[(size_t)row * topk + j] = scores[row];
-    return;
+constexpr int TK_WARPS = 4;   // warps a row (the threshold kernel's block)
+constexpr int TK_HOLD = 4;    // float4 a thread holds: V <= 2048 in registers
+constexpr int TK_NV = 4 * TK_HOLD;  // values (or listed best values) a thread keeps
+constexpr int TK_TOP = 8;     // the threshold kernel's topk at most
+constexpr int TK_MAXC = TK_TOP * TK_NV;  // candidates at most: topk threads' values
+constexpr int TK_ROWS = 4;    // rows a block of the rounds kernel, one warp each
+
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    arg_better(v, i, __shfl_xor_sync(0xffffffffu, v, o), __shfl_xor_sync(0xffffffffu, i, o));
+}
+
+__device__ __forceinline__ float tk_total(float lg, int id, float lse, float f, float sc) {
+  const float pad = id == 0 ? 0.f : -1e9f;
+  return f * pad + (1.f - f) * (lg - lse) + sc;
+}
+
+// (v, i) into a lane's list, sorted best first, if it beats the last entry
+template <int LK>
+__device__ __forceinline__ void tk_insert(float (&lv)[LK], int (&li)[LK], float v, int i) {
+  if (!tk_better(v, i, lv[LK - 1], li[LK - 1])) return;
+#pragma unroll
+  for (int j = 0; j < LK; ++j) {
+    if (tk_better(v, i, lv[j], li[j])) {
+      const float tv = lv[j];
+      const int ti = li[j];
+      lv[j] = v;
+      li[j] = i;
+      v = tv;
+      i = ti;
+    }
   }
-  const float* lg = logits + (size_t)row * V;
-  float m = -INFINITY;
-  for (int c = threadIdx.x; c < V; c += blockDim.x) m = fmaxf(m, lg[c]);
-  m = block_max(m);
-  float s = 0.f;
-  for (int c = threadIdx.x; c < V; c += blockDim.x) s += expf(lg[c] - m);
-  const float lse = m + logf(block_sum(s));
-  const float f = fin[row], sc = scores[row];
-  for (int c = threadIdx.x; c < V; c += blockDim.x) {
-    const float pad = c == 0 ? 0.f : -1e9f;
-    tot[c] = f * pad + (1.f - f) * (lg[c] - lse) + sc;
+}
+
+// The warp's pairs, one a lane, sorted best first (lane j holds the j-th):
+// a bitonic network over the lanes.
+__device__ __forceinline__ void tk_warp_sort(float& v, int& i) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+#pragma unroll
+    for (int j = k / 2; j > 0; j >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, j);
+      const int oi = __shfl_xor_sync(0xffffffffu, i, j);
+      // in a descending run the lower lane of the pair keeps the better
+      if (tk_better(ov, oi, v, i) == (((lane & j) == 0) == ((lane & k) == 0))) {
+        v = ov;
+        i = oi;
+      }
+    }
+}
+
+// Lanes in groups of 8, each group a sorted list (best first): every group
+// becomes the best 8 of its list and the list d lanes away (d 8 or 16), sorted.
+// The pairwise better of one list and the other reversed is the best 8 as a
+// bitonic sequence, which three exchange stages sort.
+__device__ __forceinline__ void tk_group_merge(float& v, int& i, int d) {
+  const int lane = threadIdx.x & 31;
+  const float ov = __shfl_xor_sync(0xffffffffu, v, d | 7);
+  const int oi = __shfl_xor_sync(0xffffffffu, i, d | 7);
+  if (tk_better(ov, oi, v, i)) {
+    v = ov;
+    i = oi;
   }
-  __syncthreads();
+#pragma unroll
+  for (int j = 4; j > 0; j >>= 1) {
+    const float pv = __shfl_xor_sync(0xffffffffu, v, j);
+    const int pi = __shfl_xor_sync(0xffffffffu, i, j);
+    if (tk_better(pv, pi, v, i) == ((lane & j) == 0)) {
+      v = pv;
+      i = pi;
+    }
+  }
+}
+
+// How many of the n pairs (sv[e], si[e]) come before (v, i): its place in
+// the (total desc, id asc) order when (v, i) is one of them.
+__device__ __forceinline__ int tk_rank(float v, int i, const float* sv, const int* si, int n) {
+  int r = 0;
+  for (int e = 0; e < n; ++e) r += tk_better(sv[e], si[e], v, i);
+  return r;
+}
+
+// The best topk of the n pairs pair(e, v, i) gives, in topk rounds of the
+// warp: each round takes the best pair strictly after the previous round's
+// winner in the (total desc, id asc) order; lane 0 writes them.
+template <typename Pair>
+__device__ __forceinline__ void tk_rounds(Pair pair, int n, int topk, float* out_s, int* out_i) {
+  const int lane = threadIdx.x & 31;
+  float pv = INFINITY;
+  int pi = -1;
   for (int j = 0; j < topk; ++j) {
     float bv = -INFINITY;
     int bi = 0x7fffffff;
-    for (int c = threadIdx.x; c < V; c += blockDim.x) arg_better(bv, bi, tot[c], c);
-    block_argmax(bv, bi);
-    if (threadIdx.x == 0) {
-      out_s[(size_t)row * topk + j] = bv;
-      out_i[(size_t)row * topk + j] = bi;
-      tot[bi] = -1e30f;
+    for (int e = lane; e < n; e += 32) {
+      float v;
+      int i;
+      pair(e, v, i);
+      if (tk_better(pv, pi, v, i)) arg_better(bv, bi, v, i);
     }
-    __syncthreads();
+    warp_best(bv, bi);
+    if (lane == 0) {
+      out_s[j] = bv;
+      out_i[j] = bi;
+    }
+    pv = bv;
+    pi = bi;
   }
+}
+
+template <int LK>
+__device__ __forceinline__ void tk_init(float (&lv)[LK], int (&li)[LK]) {
+#pragma unroll
+  for (int k = 0; k < LK; ++k) {
+    lv[k] = -INFINITY;
+    li[k] = 0x7fffffff;
+  }
+}
+
+// topk <= TK_TOP: one block a row. HOLD: V % 4 == 0, V <= 512·TK_HOLD,
+// logits 16-byte aligned, the row in registers; else streamed.
+template <bool HOLD>
+__global__ void __launch_bounds__(32 * TK_WARPS) logsoftmax_topk_kernel(
+    const float* __restrict__ logits, const float* __restrict__ scores,
+    const float* __restrict__ fin, float* __restrict__ out_s, int* __restrict__ out_i, int V,
+    int topk) {
+  __shared__ float sm[TK_WARPS], ss[TK_WARPS], wv[TK_WARPS][TK_TOP], cv[TK_MAXC];
+  __shared__ int wi[TK_WARPS][TK_TOP], ci[TK_MAXC], ncand;
+  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (kTrivial) {
+    for (int j = tid; j < topk; j += blockDim.x) out_s[(size_t)row * topk + j] = scores[row];
+    return;
+  }
+  constexpr int NT = 32 * TK_WARPS;
+  const float* lg = logits + (size_t)row * V;
+  if (tid == 0) ncand = 0;
+  // max, then the sum of exp(v - max): warp shuffles, then across the warps
+  float4 x[HOLD ? TK_HOLD : 1];
+  float m = -INFINITY, s = 0.f;
+  if (HOLD) {
+#pragma unroll
+    for (int k = 0; k < TK_HOLD; ++k) {
+      const int c = k * NT + tid;
+      x[k] = c < V / 4 ? __ldg(reinterpret_cast<const float4*>(lg) + c)
+                       : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+      m = fmaxf(m, fmaxf(fmaxf(x[k].x, x[k].y), fmaxf(x[k].z, x[k].w)));
+    }
+  } else {
+    for (int c = tid; c < V; c += NT) m = fmaxf(m, lg[c]);
+  }
+  m = warp_max(m);
+  if (lane == 0) sm[warp] = m;
+  __syncthreads();
+  m = sm[0];
+#pragma unroll
+  for (int w = 1; w < TK_WARPS; ++w) m = fmaxf(m, sm[w]);
+  if (HOLD) {
+#pragma unroll
+    for (int k = 0; k < TK_HOLD; ++k)
+      if (k * NT + tid < V / 4)
+        s += (expf(x[k].x - m) + expf(x[k].y - m)) + (expf(x[k].z - m) + expf(x[k].w - m));
+  } else {
+    for (int c = tid; c < V; c += NT) s += expf(lg[c] - m);
+  }
+  s = warp_sum(s);
+  if (lane == 0) ss[warp] = s;
+  __syncthreads();
+  s = ss[0];
+#pragma unroll
+  for (int w = 1; w < TK_WARPS; ++w) s += ss[w];
+  const float lse = m + logf(s), f = fin[row], sc = scores[row];
+
+  // this thread's totals (HOLD: its values; else its best TK_NV) and its best
+  float tv[TK_NV];
+  int ti[TK_NV];
+  tk_init(tv, ti);
+  if (HOLD) {
+#pragma unroll
+    for (int k = 0; k < TK_HOLD; ++k) {
+      const int c = k * NT + tid;
+      if (c < V / 4) {
+        const float e[4] = {x[k].x, x[k].y, x[k].z, x[k].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          tv[4 * k + u] = tk_total(e[u], 4 * c + u, lse, f, sc);
+          ti[4 * k + u] = 4 * c + u;
+        }
+      }
+    }
+  } else {
+    for (int c = tid; c < V; c += NT) tk_insert(tv, ti, tk_total(lg[c], c, lse, f, sc), c);
+  }
+  float bv;  // this thread's best, by a tree over its values
+  int bi;
+  {
+    float rv[TK_NV];
+    int ri[TK_NV];
+#pragma unroll
+    for (int k = 0; k < TK_NV; ++k) {
+      rv[k] = tv[k];
+      ri[k] = ti[k];
+    }
+    static_assert(TK_NV == 16, "a tree of four levels");
+#pragma unroll
+    for (int k = 0; k < 8; ++k) arg_better(rv[k], ri[k], rv[k + 8], ri[k + 8]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) arg_better(rv[k], ri[k], rv[k + 4], ri[k + 4]);
+    arg_better(rv[0], ri[0], rv[2], ri[2]);
+    arg_better(rv[1], ri[1], rv[3], ri[3]);
+    arg_better(rv[0], ri[0], rv[1], ri[1]);
+    bv = rv[0];
+    bi = ri[0];
+  }
+
+  // T: the topk-th best of the threads' best totals; at least topk values reach it
+  tk_warp_sort(bv, bi);
+  if (lane < TK_TOP) {  // the warp's best 8, sorted; past topk they do not count
+    wv[warp][lane] = lane < topk ? bv : -INFINITY;
+    wi[warp][lane] = lane < topk ? bi : 0x7fffffff;
+  }
+  __syncthreads();
+  static_assert(TK_WARPS * TK_TOP == 32, "the warps' lists fill one warp");
+  bv = wv[lane / TK_TOP][lane % TK_TOP];
+  bi = wi[lane / TK_TOP][lane % TK_TOP];
+  tk_group_merge(bv, bi, 8);
+  tk_group_merge(bv, bi, 16);
+  const float tt = __shfl_sync(0xffffffffu, bv, topk - 1);
+  const int tid_t = __shfl_sync(0xffffffffu, bi, topk - 1);
+#pragma unroll
+  for (int k = 0; k < TK_NV; ++k) {
+    if (ti[k] != 0x7fffffff && !tk_better(tt, tid_t, tv[k], ti[k])) {
+      const int slot = atomicAdd(&ncand, 1);
+      if (slot < TK_MAXC) {
+        cv[slot] = tv[k];
+        ci[slot] = ti[k];
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int n = min(ncand, TK_MAXC);
+    float* os = out_s + (size_t)row * topk;
+    int* oi = out_i + (size_t)row * topk;
+    if (n <= 32) {  // the usual case: one candidate a lane, written at its rank
+      if (lane < n) {
+        const int rank = tk_rank(cv[lane], ci[lane], cv, ci, n);
+        if (rank < topk) {
+          os[rank] = cv[lane];
+          oi[rank] = ci[lane];
+        }
+      }
+    } else {  // many ties at T
+      tk_rounds([&](int e, float& v, int& i) { v = cv[e]; i = ci[e]; }, n, topk, os, oi);
+    }
+  }
+}
+
+// The row's max and log-sum-exp, streamed (every lane gets them).
+__device__ __forceinline__ float tk_lse(const float* lg, int V) {
+  const int lane = threadIdx.x & 31;
+  float m = -INFINITY;
+  for (int c = lane; c < V; c += 32) m = fmaxf(m, lg[c]);
+  m = warp_max(m);
+  float s = 0.f;
+  for (int c = lane; c < V; c += 32) s += expf(lg[c] - m);
+  return m + logf(warp_sum(s));
+}
+
+// topk > TK_TOP: one warp a row, topk rounds over the row.
+__global__ void __launch_bounds__(32 * TK_ROWS) logsoftmax_topk_rounds_kernel(
+    const float* __restrict__ logits, const float* __restrict__ scores,
+    const float* __restrict__ fin, float* __restrict__ out_s, int* __restrict__ out_i, int BK,
+    int V, int topk) {
+  const int row = blockIdx.x * TK_ROWS + (threadIdx.x >> 5);
+  if (row >= BK) return;
+  if (kTrivial) {
+    for (int j = threadIdx.x & 31; j < topk; j += 32) out_s[(size_t)row * topk + j] = scores[row];
+    return;
+  }
+  const float* lg = logits + (size_t)row * V;
+  const float lse = tk_lse(lg, V), f = fin[row], sc = scores[row];
+  tk_rounds([&](int c, float& v, int& i) { v = tk_total(lg[c], c, lse, f, sc); i = c; }, V, topk,
+            out_s + (size_t)row * topk, out_i + (size_t)row * topk);
 }
 
 inline int last_error() { return (int)cudaGetLastError(); }
@@ -1441,14 +1817,33 @@ int fd_add_layernorm(const float* y, const void* r, const float* gamma, const fl
 
 // Both attention kernels take the 16-byte chunk path where a head row is a
 // whole number of 16-byte chunks and every pointer starts on a 16-byte
-// boundary, and the 4-value path otherwise.
+// boundary, and the 4-value path otherwise. Head rows wider than the fast
+// kernels reach run the wide kernels, which keep the context in scratch
+// (BK, d) float32 between stages: the wrapper passes it for any head width
+// above 128, and a wide launch without it is refused.
 int fd_self_attention(const void* qkv, void* k_layer, void* v_layer, const int* src_t,
-                      void* ctx, int BK, int d, int H, int beam, int pos, float scale,
-                      int dtype, void* stream) {
+                      void* ctx, float* scratch, int BK, int d, int H, int beam, int pos,
+                      float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(H, (BK + SA_ROWS - 1) / SA_ROWS), block(32 * SA_ROWS);
-  const bool vec = (d / H * (dtype == 0 ? 4 : 2)) % 16 == 0 &&
+  const int esz = dtype == 0 ? 4 : 2, dh = d / H;
+  const bool vec = (dh * esz) % 16 == 0 &&
                    ((uintptr_t)qkv | (uintptr_t)k_layer | (uintptr_t)v_layer | (uintptr_t)ctx) % 16 == 0;
+  const int cw = vec ? 16 / esz : 4;
+  if ((dh + cw - 1) / cw > 32) {  // more chunks than lanes: the wide kernel
+    if (!scratch) return (int)cudaErrorInvalidValue;
+#define FD_SW(T, V)                                                                            \
+  self_attention_wide_kernel<T, V><<<dim3(H, (BK + WA_ROWS - 1) / WA_ROWS), 32 * WA_ROWS, 0,    \
+                                     s>>>((const T*)qkv, (T*)k_layer, (T*)v_layer, src_t,       \
+                                          (T*)ctx, scratch, BK, d, H, beam, pos, scale)
+    if (dtype == 0) {
+      if (vec) FD_SW(float, true); else FD_SW(float, false);
+    } else {
+      if (vec) FD_SW(bf16, true); else FD_SW(bf16, false);
+    }
+#undef FD_SW
+    return last_error();
+  }
 #define FD_SA(T, V)                                                                            \
   self_attention_kernel<T, V><<<grid, block, 0, s>>>((const T*)qkv, (T*)k_layer, (T*)v_layer,   \
                                                      src_t, (T*)ctx, BK, d, H, beam, pos, scale)
@@ -1461,11 +1856,12 @@ int fd_self_attention(const void* qkv, void* k_layer, void* v_layer, const int* 
   return last_error();
 }
 
-int fd_cross_attention(const void* q, const void* kv_layer, void* ctx, int B, int Lenc, int d,
-                       int H, int beam, float scale, int dtype, void* stream) {
+int fd_cross_attention(const void* q, const void* kv_layer, void* ctx, float* scratch, int B,
+                       int Lenc, int d, int H, int beam, float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int dh = d / H;
   const bool aligned = ((uintptr_t)q | (uintptr_t)kv_layer | (uintptr_t)ctx) % 16 == 0;
+  const bool vec = (dh * (dtype == 0 ? 4 : 2)) % 16 == 0 && aligned;
   if (dtype == 1 && aligned && (dh == 16 || dh == 32 || dh == 64 || dh == 128)) {
     const dim3 grid(H, B, (beam + CM_ROWS - 1) / CM_ROWS);
 #define FD_CM(DH)                                                                              \
@@ -1477,9 +1873,22 @@ int fd_cross_attention(const void* q, const void* kv_layer, void* ctx, int B, in
 #undef FD_CM
     return last_error();
   }
+  if (dh > 128) {  // one float4 context group a thread no longer covers a row group
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    const dim3 grid(H, B, (beam + WA_ROWS - 1) / WA_ROWS);
+#define FD_CW(T, V)                                                                            \
+  cross_attention_wide_kernel<T, V><<<grid, 32 * WA_ROWS, 0, s>>>(                              \
+      (const T*)q, (const T*)kv_layer, (T*)ctx, scratch, B, Lenc, d, H, beam, scale)
+    if (dtype == 0) {
+      if (vec) FD_CW(float, true); else FD_CW(float, false);
+    } else {
+      if (vec) FD_CW(bf16, true); else FD_CW(bf16, false);
+    }
+#undef FD_CW
+    return last_error();
+  }
   const dim3 grid(H, B, (beam + CA_ROWS - 1) / CA_ROWS), block(CA_THREADS);
   const size_t smem = (size_t)ca_smem_floats(dh) * sizeof(float);  // <= 40 KB at dh 128
-  const bool vec = (dh * (dtype == 0 ? 4 : 2)) % 16 == 0 && aligned;
 #define FD_CA(T, V)                                                                            \
   cross_attention_kernel<T, V><<<grid, block, smem, s>>>((const T*)q, (const T*)kv_layer,       \
                                                          (T*)ctx, B, Lenc, d, H, beam, scale)
@@ -1492,16 +1901,23 @@ int fd_cross_attention(const void* q, const void* kv_layer, void* ctx, int B, in
   return last_error();
 }
 
+// One block a row up to topk 8: the row held in registers where it fits
+// (V % 4 == 0, V <= 512·TK_HOLD, 16-byte aligned), streamed otherwise;
+// above, one warp a row in rounds.
 int fd_logsoftmax_topk(const float* logits, const float* scores, const float* fin,
                        float* out_s, int* out_i, int BK, int V, int topk, void* stream) {
-  const size_t smem = (size_t)V * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        logsoftmax_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (topk < 1 || topk > V) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (topk > TK_TOP) {
+    logsoftmax_topk_rounds_kernel<<<(BK + TK_ROWS - 1) / TK_ROWS, 32 * TK_ROWS, 0, s>>>(
+        logits, scores, fin, out_s, out_i, BK, V, topk);
+  } else if (V % 4 == 0 && V <= 4 * 32 * TK_WARPS * TK_HOLD && (uintptr_t)logits % 16 == 0) {
+    logsoftmax_topk_kernel<true><<<BK, 32 * TK_WARPS, 0, s>>>(logits, scores, fin, out_s, out_i,
+                                                              V, topk);
+  } else {
+    logsoftmax_topk_kernel<false><<<BK, 32 * TK_WARPS, 0, s>>>(logits, scores, fin, out_s,
+                                                               out_i, V, topk);
   }
-  logsoftmax_topk_kernel<<<BK, 256, smem, (cudaStream_t)stream>>>(
-      logits, scores, fin, out_s, out_i, V, topk);
   return last_error();
 }
 

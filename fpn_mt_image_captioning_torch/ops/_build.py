@@ -34,6 +34,9 @@ LIBRARIES = {
     "fused_decoder": ("fused_decoder", ()),
     "fused_backbone": ("fused_backbone", ()),
     "probes": ("probes", ()),
+    # the two kernels as they were before their redesign, timed in turns
+    # with the present ones (ops/previous.py)
+    "previous": ("previous", ()),
     # the decode step's kernels with empty bodies, for the launch-cost probe
     "fused_decoder_trivial": ("fused_decoder", ("-DFD_TRIVIAL_BODIES",)),
     # the wgmma linear stamping its phases, for scripts/linear_phases.py

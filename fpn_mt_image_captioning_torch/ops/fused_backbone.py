@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,19 +37,29 @@ import torch.nn.functional as F
 from ..models.backbones.mobilenet_v2 import _BLOCK_CONFIG, _C3_GROUP, _C4_GROUP
 from ..models.layers import normalize_images
 from ._build import MAX_SMEM, check, launched, load_library, on_cpu, stream
+from .fused_decoder import H100_SMS
 
 __all__ = [
     "KERNELS", "pack_backbone_weights", "fused_ir_block", "fused_ir_block_reference",
     "fused_mobilenet_backbone", "supports_fused_backbone", "fused_encode",
-    "packed_to", "reset_launch_counts", "tile_plan",
+    "packed_to", "reset_launch_counts", "tile_plan", "TilePlan", "block_occupancy",
 ]
 
 BN_EPS = 1e-3
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel geometry (csrc/fused_backbone.cu): output tiles of th × 8 pixels,
-# expanded channels in chunks of 32, up to 320 output channels per block
-TILE_W, CHUNK, MAX_NJ = 8, 32, 10
+# expanded channels in chunks of 32, 256 threads a block. float32 (CUDA
+# cores): 32·NJ output channels a block. bfloat16 (tensor cores): a warp
+# holds one m-tile of 16 output pixels × NTW n-tiles of 8 channels
+TILE_W, CHUNK, THREADS = 8, 32, 256
 _NJ_CHOICES = (1, 2, 3, 5, 10)
+_NTW_CHOICES = (2, 4, 6, 10)
+ROW_PAD = 8                   # bf16 of padding a shared row (ldmatrix banks)
+SM_SMEM = 233472              # shared memory of one H100 SM, bytes
+BLOCK_RESERVED = 1024         # shared memory the card reserves a block
+# bfloat16 takes 16-row tiles only where the image still gives this many
+# tiles an SM (each tile pays fixed costs; too few tiles leave SMs idle)
+TALL_TILES_PER_SM = 4
 
 
 # ---------------------------------------------------------------------------
@@ -156,17 +167,76 @@ def fused_ir_block_reference(x: torch.Tensor, blk: dict, *, stride: int,
     return out.to(x.dtype)
 
 
-def tile_plan(cin: int, cout: int, stride: int) -> tuple[int, int]:
-    """(tile height th, NJ) for the kernel: NJ·32 output channels per block,
-    and the largest th in 8, 4, 2, 1 whose shared memory fits (the input
-    patch and every staging buffer are float32). Raises if none fits."""
-    nj = next((n for n in _NJ_CHOICES if 32 * n >= cout), MAX_NJ)
-    cin4 = -(-cin // 4) * 4
-    for th in (8, 4, 2, 1):
-        p = ((th - 1) * stride + 3) * ((TILE_W - 1) * stride + 3)
-        floats = p * cin4 + cin4 * CHUNK + p * CHUNK + th * TILE_W * CHUNK + CHUNK * 32 * nj
-        if 4 * floats <= MAX_SMEM:
-            return th, nj
+class TilePlan(NamedTuple):
+    """How ``fused_ir_block``'s kernel covers a block: output tiles of ``th``
+    × 8 pixels; ``unit`` NJ (float32) or NTW (bfloat16); ``width`` output
+    channels a block, ``slices`` blocks across Cout; ``smem`` bytes of
+    dynamic shared memory a block and the blocks an SM that leaves room
+    for (the bfloat16 kernel's registers allow two: ``__launch_bounds__(256,
+    2)``)."""
+    th: int
+    unit: int
+    width: int
+    slices: int
+    smem: int
+    blocks_per_sm: int
+
+
+def _plan(th, unit, width, cout, smem) -> TilePlan:
+    return TilePlan(th, unit, width, -(-cout // width), smem,
+                    SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+def _mma_smem(th: int, stride: int, cin: int, ntw: int, expand: bool) -> tuple[int, int]:
+    """(bytes, width) of the bfloat16 kernel's block (``mma_smem_bytes``):
+    the bf16 patch (K padded to 16), the chunk's expand weights and float32
+    expanded chunk (expand blocks), the bf16 depthwise output (16 rows at
+    least), the chunk's project weights."""
+    p = ((th - 1) * stride + 3) * ((TILE_W - 1) * stride + 3)
+    k16 = -(-cin // 16) * 16
+    to = th * TILE_W
+    width = THREADS // 32 // -(-to // 16) * ntw * 8
+    ld = CHUNK + ROW_PAD
+    smem = (2 * p * (k16 + ROW_PAD) + (2 * k16 * ld + 4 * p * ld if expand else 0)
+            + 2 * max(to, 16) * ld + 2 * CHUNK * (width + ROW_PAD))
+    return smem, width
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(cin: int, cout: int, stride: int, dtype: torch.dtype = torch.bfloat16,
+              expand: bool = True, pixels: int = 0) -> TilePlan:
+    """The kernel's plan for a block of ``pixels`` output pixels (batch ×
+    Ho × Wo; ``csrc/fused_backbone.cu`` sums the same shared memory).
+    bfloat16: the largest th in 16, 8, 4, 2, 1 whose project accumulators
+    (NTW <= 10 n-tiles a warp) cover Cout in one slice and whose shared
+    memory leaves room for two blocks an SM, 16 only where the pixels give
+    ``TALL_TILES_PER_SM`` tiles an SM; failing that, the first plan with two
+    blocks an SM, or that fits at all. float32: NJ·32 >= Cout
+    (up to 320 a slice) and the largest th whose float32 staging fits. Raises
+    if nothing fits."""
+    if dtype == torch.float32:
+        nj = next((n for n in _NJ_CHOICES if 32 * n >= cout), _NJ_CHOICES[-1])
+        cin4 = -(-cin // 4) * 4
+        for th in (8, 4, 2, 1):
+            p = ((th - 1) * stride + 3) * ((TILE_W - 1) * stride + 3)
+            floats = p * cin4 + cin4 * CHUNK + p * CHUNK + th * TILE_W * CHUNK + CHUNK * 32 * nj
+            if 4 * floats <= MAX_SMEM:
+                return _plan(th, nj, 32 * nj, cout, 4 * floats)
+    else:
+        plans = []
+        tall = pixels >= 16 * TILE_W * TALL_TILES_PER_SM * H100_SMS
+        for th in ((16,) if tall else ()) + (8, 4, 2, 1):
+            warps_n = THREADS // 32 // -(-th * TILE_W // 16)
+            need = -(-(-(-cout // 8)) // warps_n)
+            ntw = next((n for n in _NTW_CHOICES if n >= need), _NTW_CHOICES[-1])
+            smem, width = _mma_smem(th, stride, cin, ntw, expand)
+            if smem <= MAX_SMEM:
+                plans.append(_plan(th, ntw, width, cout, smem))
+        for ok in (lambda q: q.slices == 1 and q.blocks_per_sm >= 2,
+                   lambda q: q.blocks_per_sm >= 2, lambda q: True):
+            chosen = next((q for q in plans if ok(q)), None)
+            if chosen:
+                return chosen
     raise ValueError(f"fused_ir_block: a block with {cin} input channels does not fit "
                      "in shared memory")
 
@@ -175,7 +245,7 @@ def tile_plan(cin: int, cout: int, stride: int) -> tuple[int, int]:
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_backbone")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fb_ir_block.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P]
+    lib.fb_ir_block.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P]
     lib.fb_ir_block.restype = I
     lib.fb_error_string.argtypes, lib.fb_error_string.restype = [I], ctypes.c_char_p
     return lib
@@ -213,16 +283,32 @@ def fused_ir_block(x: torch.Tensor, blk: dict, *, stride: int, residual: bool) -
     check("b_proj", blk["b_proj"], (cout,), f32, dev)
     if residual and (stride != 1 or cin != cout):
         raise ValueError("fused_ir_block: a residual needs stride 1 and Cin == Cout")
-    th, nj = tile_plan(cin, cout, stride)
     ho, wo = h // stride, w // stride
+    plan = tile_plan(cin, cout, stride, x.dtype, has_expand, b * ho * wo)
     y = x.new_empty((b, ho, wo, cout))
     ptr = lambda k: blk[k].data_ptr() if k in blk else None
     rc = _lib().fb_ir_block(
         x.data_ptr(), ptr("w_exp"), ptr("b_exp"), ptr("w_dw"), ptr("b_dw"), ptr("w_proj"),
         ptr("b_proj"), y.data_ptr(), b, h, w, cin, cexp, cout, stride, int(residual),
-        th, nj, _DTYPE_CODE[x.dtype], stream(dev))
+        plan.th, plan.unit, _DTYPE_CODE[x.dtype], stream(dev), None)
     launched(fused_ir_block, rc, _error_string)
     return y
+
+
+def block_occupancy(cin: int, cout: int, stride: int, dtype: torch.dtype,
+                    expand: bool = True, pixels: int = 0) -> int:
+    """Blocks an SM that ``fused_ir_block``'s kernel reaches on the current
+    card for this block's plan (the CUDA occupancy calculator: registers and
+    shared memory together). Launches nothing."""
+    plan = tile_plan(cin, cout, stride, dtype, expand, pixels)
+    n = ctypes.c_int(0)
+    cexp = 6 * cin if expand else cin
+    rc = _lib().fb_ir_block(None, 1 if expand else None, None, None, None, None, None, None, 1,
+                            2, 2, cin, cexp, cout, stride, 0, plan.th, plan.unit,
+                            _DTYPE_CODE[dtype], None, ctypes.addressof(n))
+    if rc:
+        raise RuntimeError(f"block_occupancy: {_error_string(rc).decode()} (code {rc})")
+    return n.value
 
 
 KERNELS = (fused_ir_block,)

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ._build import MAX_SMEM, check, launched, load_library, on_cpu, stream
+from ._build import check, launched, load_library, on_cpu, stream
 
 __all__ = [
     "FUSED_ACTIVATIONS", "KERNELS", "round_up", "pack_decoder_weights",
@@ -57,7 +57,9 @@ FUSED_ACTIVATIONS = frozenset({"leaky_relu", "relu", "relu6", "gelu"})
 _ACT_CODE = {"none": 0, "leaky_relu": 1, "relu": 2, "relu6": 3, "gelu": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-6
-MAX_HEAD_DIM = 128   # a head row spans at most the 32 lanes of a warp, 4 values or more a lane
+# above this head width the attention kernels may take their wide path, which
+# keeps each row's context in a float32 scratch row between stages
+WIDE_HEAD_DIM = 128
 # decoder_linear's wgmma kernel: N and K tiles (one 128-byte swizzle row of
 # bf16), the largest portable thread-block cluster, the H100's SMs
 LINEAR_BN = LINEAR_BK = 64
@@ -251,8 +253,8 @@ def _lib() -> ctypes.CDLL:
     sigs = {
         "fd_linear": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P],
         "fd_add_layernorm": [P, P, P, P, P, P, I, I, I, I, Fl, P],
-        "fd_self_attention": [P, P, P, P, P, I, I, I, I, I, Fl, I, P],
-        "fd_cross_attention": [P, P, P, I, I, I, I, I, Fl, I, P],
+        "fd_self_attention": [P, P, P, P, P, P, I, I, I, I, I, Fl, I, P],
+        "fd_cross_attention": [P, P, P, P, I, I, I, I, I, Fl, I, P],
         "fd_logsoftmax_topk": [P, P, P, P, P, I, I, I, P],
     }
     for name, args in sigs.items():
@@ -381,9 +383,18 @@ def decoder_add_layernorm(y, r, gamma, beta, out_dtype):
 
 
 def _check_heads(d: int, num_heads: int) -> None:
-    if num_heads < 1 or d % num_heads or d // num_heads > MAX_HEAD_DIM:
-        raise ValueError(f"attention kernels need d % H == 0 and d/H <= {MAX_HEAD_DIM} "
-                         f"(d={d}, H={num_heads})")
+    if num_heads < 1 or d % num_heads:
+        raise ValueError(f"attention kernels need H >= 1 and d % H == 0 (d={d}, H={num_heads})")
+
+
+def _scratch(x: torch.Tensor, d: int, num_heads: int) -> tuple[torch.Tensor | None, int | None]:
+    """The wide path's float32 context rows (BK, d) and their address, for
+    head widths above ``WIDE_HEAD_DIM`` (the caller holds the tensor through
+    the launch); (None, None) otherwise."""
+    if d // num_heads <= WIDE_HEAD_DIM:
+        return None, None
+    t = x.new_empty((x.shape[0], d), dtype=torch.float32)
+    return t, t.data_ptr()
 
 
 def decoder_self_attention(qkv, k_self, v_self, layer: int, pos: int, src_t, beam: int,
@@ -406,11 +417,11 @@ def decoder_self_attention(qkv, k_self, v_self, layer: int, pos: int, src_t, bea
     check("k_self", k_self, (n, lpad, bk, d), qkv.dtype, dev)
     check("v_self", v_self, (n, lpad, bk, d), qkv.dtype, dev)
     check("src_t", src_t, (lpad, bk), torch.int32, dev)
-    ctx = qkv.new_empty((bk, d))
+    ctx, (_scratch_rows, scratch) = qkv.new_empty((bk, d)), _scratch(qkv, d, num_heads)
     rc = _lib().fd_self_attention(
         qkv.data_ptr(), k_self[layer].data_ptr(), v_self[layer].data_ptr(), src_t.data_ptr(),
-        ctx.data_ptr(), bk, d, num_heads, beam, pos, 1.0 / math.sqrt(d // num_heads), code,
-        stream(dev))
+        ctx.data_ptr(), scratch, bk, d, num_heads, beam, pos, 1.0 / math.sqrt(d // num_heads),
+        code, stream(dev))
     launched(decoder_self_attention, rc, _error_string)
     return ctx
 
@@ -431,10 +442,10 @@ def decoder_cross_attention(q, kv_cross, layer: int, beam: int, num_heads: int):
                          f"{tuple(kv_cross.shape)}")
     check("q", q, (bk, d), q.dtype, dev)
     check("kv_cross", kv_cross, (n, lenc, b, 2 * d), q.dtype, dev)
-    ctx = q.new_empty((bk, d))
+    ctx, (_scratch_rows, scratch) = q.new_empty((bk, d)), _scratch(q, d, num_heads)
     rc = _lib().fd_cross_attention(
-        q.data_ptr(), kv_cross[layer].data_ptr(), ctx.data_ptr(), b, lenc, d, num_heads, beam,
-        1.0 / math.sqrt(d // num_heads), code, stream(dev))
+        q.data_ptr(), kv_cross[layer].data_ptr(), ctx.data_ptr(), scratch, b, lenc, d,
+        num_heads, beam, 1.0 / math.sqrt(d // num_heads), code, stream(dev))
     launched(decoder_cross_attention, rc, _error_string)
     return ctx
 
@@ -446,7 +457,7 @@ def decoder_logsoftmax_topk(logits, scores, finished, topk: int):
     if on_cpu(logits):
         return decoder_logsoftmax_topk_reference(logits, scores, finished, topk)
     bk, v = logits.shape
-    if not 0 < topk <= v or v * 4 > MAX_SMEM:
+    if not 0 < topk <= v:
         raise ValueError(f"decoder_logsoftmax_topk: topk={topk}, V={v} unsupported")
     scores, finished, dev = scores.reshape(-1), finished.reshape(-1), logits.get_device()
     check("logits", logits, (bk, v), torch.float32, dev)

@@ -2,10 +2,11 @@
 on the card, at the step's own linear and LayerNorm shapes (batch 8 and 64)
 and at small and ragged shapes that the flagship smoke run does not reach
 (odd M/N/K, every tile and split plan of the wgmma linear; attention at
-head widths 2, 10 and 128, positions 0 and Lpad - 1, ancestries shared and
-distinct, beam 1, Lenc 1 to 100, ragged row groups, pointers off a 16-byte
-boundary; a vocabulary whose totals exceed 48 KB of shared memory, exact
-ties), CUDA-graph captures, a split-K product run twice and the wgmma
+head widths 2, 10, 128, 129, 160, 256 and 320, positions 0 and Lpad - 1,
+ancestries shared and distinct, beam 1, Lenc 1 to 100, ragged row groups,
+pointers off a 16-byte boundary; top-k at vocabularies of 7 to 13000, topk
+up to 128, exact ties and totals that rounding ties; the backbone block at
+every flagship shape and its occupancy), CUDA-graph captures, a split-K product run twice and the wgmma
 linear's phase stamps. Needs a CUDA card and nvcc: every test here
 skips on a machine without one. On the card (which has no JAX, so
 the JAX-side conftest is skipped):
@@ -199,7 +200,13 @@ SELF_ATTENTION_CASES = (
        (40, 4, 3, 5, 16, 9, "random", False), (128, 64, 2, 2, 8, 5, "random", False),
        (512, 8, 1, 9, 64, 63, "random", False), (512, 8, 8, 4, 64, 30, "shared", False),
        (512, 8, 8, 4, 64, 30, "distinct", False), (64, 4, 5, 4, 16, 12, "random", False),
-       (512, 8, 8, 2, 64, 30, "random", True)])
+       (512, 8, 8, 2, 64, 30, "random", True)]
+    # head widths above 128: 160, 256 (bf16 still one 16-byte chunk a lane;
+    # float32 on the wide kernel), 320 (the wide kernel in both), past one
+    # stage of 64 positions, at position 0, and off a 16-byte boundary
+    + [(320, 2, 4, 3, 16, 9, "random", False), (512, 2, 8, 3, 64, 30, "random", False),
+       (640, 2, 2, 3, 80, 70, "random", False), (320, 1, 3, 2, 8, 0, "random", False),
+       (512, 2, 8, 2, 64, 63, "random", True), (640, 2, 3, 2, 16, 12, "random", True)])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -232,7 +239,11 @@ CROSS_ATTENTION_CASES = [
     (512, 8, 8, 3, 1, False), (512, 8, 8, 3, 17, False), (512, 8, 8, 3, 100, False),
     (256, 2, 8, 2, 40, False), (40, 4, 3, 5, 17, False), (128, 64, 2, 2, 5, False),
     (512, 8, 1, 7, 64, False), (64, 2, 10, 3, 33, False), (512, 8, 8, 2, 16, True),
-    (64, 2, 20, 2, 70, False), (64, 4, 3, 2, 5, False)]
+    (64, 2, 20, 2, 70, False), (64, 4, 3, 2, 5, False),
+    # head widths above 128 (the wide kernel): 160, 256, 320 and 129, past one
+    # stage of 64 positions, two row groups of an item, off a 16-byte boundary
+    (320, 2, 3, 2, 17, False), (512, 2, 8, 3, 16, False), (640, 2, 10, 2, 70, False),
+    (129, 1, 2, 2, 5, False), (512, 2, 8, 2, 16, True), (640, 2, 3, 2, 64, True)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -295,12 +306,16 @@ def test_attention_in_cuda_graph(dev):
             assert_close(got, want, bf16)
 
 
-@pytest.mark.parametrize("v,topk", [(40, 1), (300, 8), (13000, 10), (7, 7)])
-def test_logsoftmax_topk(dev, v, topk):
+# (V, topk, rows): rows held in registers (V 2000 of the main path, 512
+# rows; 40; 300), streamed (V 7, 13000, 10001 not a multiple of 4), lists of
+# 8 and 16, and the rounds kernel above 16 (topk 17 and 128)
+@pytest.mark.parametrize("v,topk,bk", [(40, 1, 12), (300, 8, 12), (13000, 10, 12), (7, 7, 12),
+                                       (2000, 8, 512), (10001, 8, 12), (300, 128, 12),
+                                       (2000, 16, 12), (2000, 17, 12)])
+def test_logsoftmax_topk(dev, v, topk, bk):
     """Distinct spaced logits (ids must be equal), planted exact ties and
     finished rows (whose other columns all tie at -1e9): lowest id first."""
     g = torch.Generator().manual_seed(v)
-    bk = 12
     logits = (torch.argsort(torch.rand(bk, v, generator=g), 1).float() / v * 8 - 4).to(dev)
     top = logits.argmax(1)
     logits[:4, -1] = logits[torch.arange(4, device=dev), top[:4]]
@@ -308,6 +323,26 @@ def test_logsoftmax_topk(dev, v, topk):
     finished = (torch.arange(bk, device=dev) % 3 == 0).float()[:, None]
     got_s, got_i = fd.decoder_logsoftmax_topk(logits, scores, finished, topk)
     want_s, want_i = fd.decoder_logsoftmax_topk_reference(logits, scores, finished, topk)
+    assert_close(got_s, want_s, torch.float32)
+    assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("v,topk", [(2000, 8), (2001, 8), (2000, 20)])
+def test_logsoftmax_topk_rounding_ties(dev, v, topk):
+    """Five near-zero logits, distinct and largest, differ by less than an ulp
+    of lse: subtracting lse rounds them to one total, which the plain version
+    ranks by id (3, 10, 50, 100, 900), not by logit (100, 50, 900, 10, 3).
+    Registers (V 2000), streamed (2001) and rounds (topk 20)."""
+    g = torch.Generator().manual_seed(3)
+    bk = 6
+    logits = -1 - 7 * torch.rand(bk, v, generator=g)
+    ids = torch.tensor([100, 50, 900, 10, 3])
+    logits[:, ids] = torch.tensor([4e-8, 3e-8, 2e-8, 1e-8, 0.0])
+    logits = logits.to(dev)
+    scores, finished = torch.zeros(bk, 1, device=dev), torch.zeros(bk, 1, device=dev)
+    got_s, got_i = fd.decoder_logsoftmax_topk(logits, scores, finished, topk)
+    want_s, want_i = fd.decoder_logsoftmax_topk_reference(logits, scores, finished, topk)
+    assert want_i[:, :5].tolist() == [[3, 10, 50, 100, 900]] * bk
     assert_close(got_s, want_s, torch.float32)
     assert torch.equal(got_i, want_i)
 
@@ -329,9 +364,12 @@ def test_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="d % H"):   # 30 % 4, and a head of 129
         fd.decoder_cross_attention(torch.zeros(4, 30, device=dev),
                                    torch.zeros(1, 3, 2, 60, device=dev), 0, 2, 4)
-    with pytest.raises(ValueError, match="d/H"):
-        fd.decoder_cross_attention(torch.zeros(4, 129, device=dev),
-                                   torch.zeros(1, 3, 2, 258, device=dev), 0, 2, 1)
+    # a head of 129 (above the fast kernels' 128) is no longer refused: the
+    # same call matches the plain version
+    q, kv = rand(torch.Generator().manual_seed(129), 4, 129, dev=dev), \
+        rand(torch.Generator().manual_seed(258), 1, 3, 2, 258, dev=dev)
+    assert_close(fd.decoder_cross_attention(q, kv, 0, 2, 1),
+                 fd.decoder_cross_attention_reference(q, kv, 0, 2, 1), torch.float32)
     with pytest.raises(ValueError, match="Lenc = 0"):
         fd.decoder_cross_attention(torch.zeros(4, 8, device=dev),
                                    torch.zeros(1, 0, 2, 16, device=dev), 0, 2, 2)
@@ -398,6 +436,7 @@ def _ir_block(g, cin, cexp, cout, expand, dtype, dev):
     (2, 10, 16, 16, 8, 2, False, False),       # no expand at stride 2
     (1, 2, 8, 48, 8, 1, True, True),           # a 2×2 image inside one tile
     (2, 9, 12, 72, 20, 1, True, False),        # odd extent at stride 1, channels not /8
+    (5, 128, 24, 144, 24, 1, True, True),      # enough pixels for 16-row tiles
 ])
 def test_fused_ir_block(dev, dtype, b, hw, cin, cexp, cout, stride, expand, residual):
     from fpn_mt_image_captioning_torch.ops import fused_backbone as fb
@@ -413,6 +452,34 @@ def test_fused_ir_block(dev, dtype, b, hw, cin, cexp, cout, stride, expand, resi
     got, want = got.float(), want.float()
     tol = 2e-4 + 1e-3 * want.abs() if dtype == torch.float32 else 1e-2 + 1e-2 * want.abs()
     assert torch.isfinite(got).all() and bool(((got - want).abs() <= tol).all())
+
+
+# every distinct block shape of a 512² mobilenet224_1.0 encode: (input
+# extent, Cin, Cexp, Cout, stride, expand, residual)
+FLAGSHIP_BLOCKS = [
+    (256, 32, 32, 16, 1, False, False), (256, 16, 96, 24, 2, True, False),
+    (128, 24, 144, 24, 1, True, True), (128, 24, 144, 32, 2, True, False),
+    (64, 32, 192, 32, 1, True, True), (64, 32, 192, 64, 2, True, False),
+    (32, 64, 384, 64, 1, True, True), (32, 64, 384, 96, 1, True, False),
+    (32, 96, 576, 96, 1, True, True), (32, 96, 576, 160, 2, True, False),
+    (16, 160, 960, 160, 1, True, True), (16, 160, 960, 320, 1, True, False)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,cin,cexp,cout,stride,expand,residual", FLAGSHIP_BLOCKS)
+def test_fused_ir_block_flagship_shapes(dev, dtype, hw, cin, cexp, cout, stride, expand,
+                                        residual):
+    test_fused_ir_block(dev, dtype, 2, hw, cin, cexp, cout, stride, expand, residual)
+
+
+@pytest.mark.parametrize("hw,cin,cexp,cout,stride,expand,residual", FLAGSHIP_BLOCKS)
+def test_fused_ir_block_occupancy(dev, hw, cin, cexp, cout, stride, expand, residual):
+    """The bfloat16 kernel keeps at least two blocks an SM at every flagship
+    shape, registers and shared memory together, as the card counts them."""
+    from fpn_mt_image_captioning_torch.ops import fused_backbone as fb
+
+    pixels = 64 * (hw // stride) ** 2   # a batch-64 encode's plan
+    assert fb.block_occupancy(cin, cout, stride, torch.bfloat16, expand, pixels) >= 2
 
 
 def test_fused_ir_block_rejects_bad_inputs(dev):

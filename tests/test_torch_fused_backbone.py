@@ -196,18 +196,63 @@ def test_odd_extents_at_stride_two_raise(alpha1, hw):
                            w_in=hw[1], residual=False, interpret=True)
 
 
-def test_tile_plan_fits_every_flagship_block():
-    """Every block of mobilenet224_1.0 gets full 8-row tiles (the smoke's
-    shapes); a block too wide for the 227 KB of shared memory raises."""
-    pt = MobileNetV2Backbone(alpha=1.0)
-    packed = fb.pack_backbone_weights(pt, torch.float32)
+def _block_plans(alpha, dtype, batch=0):
+    """(cin, cout, stride, expand, plan) of every block of a MobileNetV2,
+    each planned for ``batch`` images of 512² (0: no pixel count)."""
+    packed = fb.pack_backbone_weights(MobileNetV2Backbone(alpha=alpha), torch.float32)
+    out, hw = [], 256
     for blk, meta in packed["blocks"]:
         cin = blk["w_exp"].shape[0] if "w_exp" in blk else blk["w_dw"].shape[1]
-        th, nj = fb.tile_plan(cin, meta["c_out"], meta["stride"])
-        assert th == 8 and 32 * nj >= meta["c_out"]
-    assert fb.tile_plan(136, 224, 2)[0] == 4        # alpha 1.4's block_5_0 halves the tile
+        expand, stride = "w_exp" in blk, meta["stride"]
+        hw //= stride
+        out.append((cin, meta["c_out"], stride, expand,
+                    fb.tile_plan(cin, meta["c_out"], stride, dtype, expand, batch * hw * hw)))
+    return out
+
+
+def test_tile_plan_fits_every_flagship_block():
+    """Every block of mobilenet224_1.0 (the smoke's shapes): float32 gets full
+    8-row tiles and one slice of NJ·32 >= Cout channels; bfloat16 one slice,
+    8-row tiles where the accumulators allow (4 rows for blocks 13 and 16),
+    16-row tiles for the early stride-1 blocks where the image gives 4 tiles
+    an SM (blocks 0, 2, 4, 5 at batch 64; 0 and 2 at batch 8), and two blocks
+    an SM. A block too wide for the 227 KB of shared memory raises."""
+    for cin, cout, stride, _, plan in _block_plans(1.0, torch.float32):
+        assert plan.th == 8 and plan.width == 32 * plan.unit >= cout and plan.slices == 1
+    plans = _block_plans(1.0, torch.bfloat16)
+    assert [p.th for *_, p in plans] == [8] * 13 + [4, 8, 8, 4]
+    assert all(p.slices == 1 and p.blocks_per_sm >= 2 for *_, p in plans)
+    tall = {b: [i for i, (*_, p) in enumerate(_block_plans(1.0, torch.bfloat16, b)) if p.th == 16]
+            for b in (64, 8)}
+    assert tall == {64: [0, 2, 4, 5], 8: [0, 2]}
+    assert fb.tile_plan(136, 224, 2, torch.float32).th == 4  # alpha 1.4's block_5_0
     with pytest.raises(ValueError, match="shared memory"):
-        fb.tile_plan(4096, 64, 2)
+        fb.tile_plan(4096, 64, 2, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        fb.tile_plan(8192, 64, 2, torch.bfloat16)
+
+
+@pytest.mark.parametrize("alpha", [0.35, 0.5, 0.75, 1.0, 1.4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tile_plan_every_alpha(alpha, dtype):
+    """Every block of MobileNetV2 at each alpha, planned without a pixel
+    count and for batch 64 at 512²: a plan within the 227 KB a block may use,
+    covering Cout; in bfloat16 one slice, whose shared memory (``_mma_smem``,
+    the kernel's sum) leaves room for two blocks an SM, the occupancy the
+    tensor-core kernel is built for (``__launch_bounds__(256, 2)``); its
+    accumulators, NTW n-tiles of 8 a warp, cover the slice."""
+    for batch in (0, 64):
+        for cin, cout, stride, expand, plan in _block_plans(alpha, dtype, batch):
+            assert plan.smem <= fb.MAX_SMEM and plan.width * plan.slices >= cout
+            assert plan.blocks_per_sm == fb.SM_SMEM // (plan.smem + fb.BLOCK_RESERVED)
+            if dtype == torch.bfloat16:
+                warps_n = 8 // -(-plan.th * 8 // 16)
+                assert plan.slices == 1 and plan.blocks_per_sm >= 2
+                assert plan.unit in (2, 4, 6, 10) and plan.width == warps_n * plan.unit * 8
+                assert (plan.smem, plan.width) == fb._mma_smem(plan.th, stride, cin, plan.unit,
+                                                               expand)
+            else:
+                assert plan.th <= 8
 
 
 def test_wrapper_refuses_other_devices(alpha1):

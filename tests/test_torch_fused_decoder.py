@@ -32,17 +32,17 @@ def perturb(tree, rng):
     return a + 0.1 * (a.std() or 1.0) * rng.standard_normal(a.shape).astype(np.float32)
 
 
-def build(vocab, max_len, b, activation="leaky_relu", seed=0):
+def build(vocab, max_len, b, activation="leaky_relu", seed=0, d=D, h=H):
     """JAX decoder params (perturbed) and the port model carrying them."""
-    jx = JxTransformer(num_layers=NL, d_model=D, num_heads=H, dff=DFF, input_vocab_size=16,
+    jx = JxTransformer(num_layers=NL, d_model=d, num_heads=h, dff=DFF, input_vocab_size=16,
                        target_vocab_size=vocab, max_seq_len=max_len + 1, activation=activation)
     key = jax.random.PRNGKey(seed)
-    enc = np.random.default_rng(seed).standard_normal((b, 4, D)).astype(np.float32)
+    enc = np.random.default_rng(seed).standard_normal((b, 4, d)).astype(np.float32)
     variables = jx.init({"params": key, "dropout": key}, jnp.asarray(enc),
                         jnp.ones((b, 4), jnp.int32), False, None)
     params = perturb(jax.device_get(variables["params"]), np.random.default_rng(seed + 100))
     with torch.device("meta"):
-        pt = PtTransformer(num_layers=NL, d_model=D, num_heads=H, dff=DFF, input_vocab_size=16,
+        pt = PtTransformer(num_layers=NL, d_model=d, num_heads=h, dff=DFF, input_vocab_size=16,
                            target_vocab_size=vocab, max_seq_len=max_len + 1,
                            backbone_name="mobilenet224_0.35", activation=activation)
     pt.to_empty(device="cpu")
@@ -52,20 +52,20 @@ def build(vocab, max_len, b, activation="leaky_relu", seed=0):
 
 
 def run_case(b, beam, max_len, vocab, steps, reorders=(), scores=None, finished=None,
-             topk=None, activation="leaky_relu"):
+             topk=None, activation="leaky_relu", d=D, h=H):
     """Drive both steps in lock step; reorders: {step: per-beam parent list}."""
     bk = b * beam
-    params, pt, enc = build(vocab, max_len, b, activation)
+    params, pt, enc = build(vocab, max_len, b, activation, d=d, h=h)
     jpacked = jx_fd.pack_decoder_weights(params, NL, dtype=jnp.float32)
     jcache = jx_fd.init_fused_cache(jpacked, jnp.asarray(enc), beam, max_len)
     ppacked = pt_fd.pack_decoder_weights(pt, torch.float32)
     pcache = pt_fd.init_fused_cache(ppacked, torch.from_numpy(enc), beam, max_len)
     lpad = jcache["k_self"].shape[1]
-    assert tuple(pcache["k_self"].shape) == (NL, lpad, bk, D)
+    assert tuple(pcache["k_self"].shape) == (NL, lpad, bk, d)
 
     rng = np.random.default_rng(1)
     emb = params["decoder"]["embedding"]["embedding"]
-    pe = raw_positional_encoding(max_len + 1, D)
+    pe = raw_positional_encoding(max_len + 1, d)
     own = np.arange(bk) % beam
     src = np.broadcast_to(own, (lpad, bk)).astype(np.int32).copy()
     topk = topk or min(5, beam * 4)
@@ -75,12 +75,12 @@ def run_case(b, beam, max_len, vocab, steps, reorders=(), scores=None, finished=
         x_emb = (emb[rng.integers(1, vocab, bk)] + pe[t]).astype(np.float32)
         js, ji, jcache = jx_fd.fused_decode_step(
             jpacked, jcache, jnp.asarray(x_emb), jnp.asarray(src), jnp.int32(t),
-            jnp.asarray(sc), jnp.asarray(fin), num_layers=NL, beam=beam, num_heads=H,
+            jnp.asarray(sc), jnp.asarray(fin), num_layers=NL, beam=beam, num_heads=h,
             topk=topk, interpret=True, activation=activation)
         ps, pi, pcache = pt_fd.fused_decode_step(
             ppacked, pcache, torch.from_numpy(x_emb), torch.from_numpy(src), t,
             torch.from_numpy(sc), torch.from_numpy(fin), num_layers=NL, beam=beam,
-            num_heads=H, topk=topk, activation=activation)
+            num_heads=h, topk=topk, activation=activation)
         assert ps.shape == (bk, topk) and pi.dtype == torch.int32
         np.testing.assert_allclose(ps.numpy(), np.asarray(js[:, :topk]), atol=ATOL,
                                    err_msg=f"step {t}")
@@ -108,6 +108,14 @@ def test_multichunk_history():
     reorders landing in different chunks."""
     run_case(b=2, beam=2, max_len=18, vocab=40, steps=18,
              reorders={5: [1, 0], 9: [1, 0], 13: [1, 0]}, topk=4)
+
+
+@pytest.mark.parametrize("d,h", [(256, 1), (320, 2)], ids=["dh256", "dh160"])
+def test_head_width_above_128(d, h):
+    """Head widths the card's fast attention kernels do not reach (above 128;
+    they run the wide path there): the port's plain step, which the kernels
+    are held to on the card, against the JAX kernel, with a reorder."""
+    run_case(b=2, beam=2, max_len=7, vocab=40, steps=3, reorders={1: [1, 0]}, d=d, h=h)
 
 
 def test_bk_128():
