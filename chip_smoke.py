@@ -88,10 +88,36 @@ the script exits non-zero without its last line):
      decode_batch 64 (one full batch, one padded): captions equal to
      ``predict_batch`` on the same pixels;
  12. server — ``serve.make_server(port=0)`` in a thread, 8 concurrent POSTs of
-     those PNGs: each 200, each caption the CLI's for that file.
+     those PNGs: each 200, each caption the CLI's for that file;
+ 13. evaluate — first the decode kernels at this path's shapes (bf16, beam
+     4, 16 items: 64 rows, Lenc 16, top 4), each held to its plain version
+     with the tolerances of phases 3 and 7: (c) at positions 1, 8, 30 and 59,
+     (d), (e), and ``fused_decode_step`` over 8 steps. Then at full width
+     with the evaluation defaults (bf16, beam 4, decode_batch 16), on the
+     seeded init perturbed and scaled in the JAX layout so that captions
+     depend on the image: a float32 pipeline's ``save_weights`` writes the
+     Flax msgpack file bitwise equal to those weights, and
+     ``Pipeline.from_config`` reads it (``transformer_weight_path``) into a
+     state dict bitwise equal to the one the weights give directly;
+     ``evaluate`` over a synthetic COCO split of 40 seeded PNGs, each with
+     a colour and a bright band of its own (after a warm-up pass; counters
+     reset just before and read just after, each decode kernel at the decode
+     steps × its launches a step, the backbone kernel at zero): the image
+     ids in the seeded shuffle's order, the results equal to
+     ``predict_batch`` over the pixels as written (not through the data
+     layer), more than one distinct caption, ``metric_eval`` with all seven
+     metrics finite; the same ``evaluate`` on the fused backbone
+     (``fused_ir_block`` at 17 × the batches, results equal to its
+     ``predict_batch``), and both encodes' ``evaluate`` in float32 (equal
+     captions: in bf16 they round apart); then the port's
+     ``test.py`` (equal to ``evaluate_img``) and ``evaluate.py`` (equal
+     results, the metric table printed) from the files. One line: images/s,
+     seconds in ``predict_batch`` and on the host, seconds in
+     ``metric_eval``, with the card's name and power limit.
 
 Then the kernel table as one JSON line (every kernel: the decode step's, the
-backbone's and the probes'), the card's name and power limit, and
+backbone's and the probes'; ``launches`` from the main path's runs,
+``evaluate_launches`` from phase 13's), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -100,6 +126,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import statistics
 import struct
 import subprocess
@@ -141,7 +168,8 @@ PROBE_TPU_KERNELS = {
     "slab_copy_lane128": "scripts/probe_grid_cell.py:154", "slab_copy_flat": _SLAB_D_TPU,
     "slab_copy_flat_loads": _SLAB_D_TPU, "slab_copy_flat_cp_async": _SLAB_D_TPU,
 }
-SIZE, N_BLOCKS, CLI_FILES, SERVER_REQUESTS = 512, 17, 70, 8
+SIZE, N_BLOCKS, CLI_FILES, SERVER_REQUESTS, EVAL_IMAGES = 512, 17, 70, 8, 40
+EVAL_BEAM, EVAL_ITEMS = 4, 16   # the evaluation defaults: beam_search_n, decode_batch
 WIDE_H = 2    # heads of the wide-head checks: d 512 / 2 = head width 256
 SELF_POSITIONS, CROSS_LENCS = (1, 8, 30, 59), (LENC, 64)   # where (c) and (d) are timed alone
 SMALL_BK = 8 * BEAM   # the rows of a batch of 8, where (c) and (d) are timed too
@@ -505,18 +533,18 @@ def phase_kernels(fd, torch, dev):
     return table
 
 
-def topk_inputs(torch, dev):
-    """(e)'s inputs at the flagship shape: float32 logits spaced apart (no
-    accidental near ties), exact ties planted on purpose, running scores and
-    a quarter of the rows finished."""
+def topk_inputs(torch, dev, n_rows: int = BK):
+    """(e)'s inputs over ``n_rows`` rows (the flagship's by default): float32
+    logits spaced apart (no accidental near ties), exact ties planted on
+    purpose, running scores and a quarter of the rows finished."""
     g = torch.Generator().manual_seed(4321)
-    perm = torch.argsort(torch.rand(BK, V, generator=g), dim=1).float()
+    perm = torch.argsort(torch.rand(n_rows, V, generator=g), dim=1).float()
     logits = (perm / V * 8 - 4).to(dev)
     top = logits.argmax(1)
     rows = torch.arange(16, device=dev)
     logits[rows, V - 1 - rows] = logits[rows, top[:16]]          # exact duplicates
-    scores = torch.randn(BK, 1, generator=g).to(dev)
-    finished = (torch.rand(BK, 1, generator=g) < 0.25).float().to(dev)
+    scores = torch.randn(n_rows, 1, generator=g).to(dev)
+    finished = (torch.rand(n_rows, 1, generator=g) < 0.25).float().to(dev)
     return logits, scores, finished
 
 
@@ -619,53 +647,60 @@ def phase_linear_plans(fd, torch, dev):
     say("linear_plans", **line)
 
 
-def phase_whole_step(fd, torch, dev, pipe, dt_name, tag=""):
+def phase_whole_step(fd, torch, dev, pipe, dt_name, tag="", items=B, beam=BEAM, timed=True):
     """fused_decode_step vs fused_decode_step_reference, 8 synchronised steps
-    (the line ``whole_step_<dtype><tag>``)."""
+    over ``items`` items of ``beam`` beams (the line ``whole_step_<dtype><tag>``);
+    with ``timed`` both are timed after."""
+    bk = items * beam
     dt = getattr(torch, dt_name)
     tol = 3e-4 if dt_name == "float32" else 0.1
     model = pipe.transformer
     packed = fd.pack_decoder_weights(model, dt)
     g = torch.Generator().manual_seed(99)
-    enc = torch.randn(B, LENC, D, generator=g).to(dev, dt)
-    cache_k = fd.init_fused_cache(packed, enc, BEAM, MAX_LEN)
-    cache_r = fd.init_fused_cache(packed, enc, BEAM, MAX_LEN)
+    enc = torch.randn(items, LENC, D, generator=g).to(dev, dt)
+    cache_k = fd.init_fused_cache(packed, enc, beam, MAX_LEN)
+    cache_r = fd.init_fused_cache(packed, enc, beam, MAX_LEN)
     lpad = cache_k["k_self"].shape[1]
-    own = (torch.arange(BK, device=dev) % BEAM).to(torch.int32)
+    own = (torch.arange(bk, device=dev) % beam).to(torch.int32)
     src_t = own[None].repeat(lpad, 1)
     emb = model.decoder.embedding.weight.to(dt)
     from fpn_mt_image_captioning_torch.models.positional import raw_positional_encoding
 
     pe = torch.as_tensor(raw_positional_encoding(MAX_LEN, D), device=dev).to(dt)
-    tokens = torch.full((BK,), pipe.start_token, device=dev, dtype=torch.long)
-    scores = torch.zeros(BK, 1, device=dev)
-    finished = torch.zeros(BK, 1, device=dev)
-    kw = dict(num_layers=model.num_layers, beam=BEAM, num_heads=model.num_heads,
+    tokens = torch.full((bk,), pipe.start_token, device=dev, dtype=torch.long)
+    scores = torch.zeros(bk, 1, device=dev)
+    finished = torch.zeros(bk, 1, device=dev)
+    kw = dict(num_layers=model.num_layers, beam=beam, num_heads=model.num_heads,
               activation=model.activation)
     worst, compared = 0.0, 0
     for t in range(8):
         x = emb[tokens] + pe[t]
         ks, ki, cache_k = fd.fused_decode_step(packed, cache_k, x, src_t, t, scores, finished,
-                                               topk=BEAM, **kw)
+                                               topk=beam, **kw)
         rs, ri, cache_r = fd.fused_decode_step_reference(
-            packed, cache_r, x, src_t, t, scores, finished, topk=BEAM + 1, **kw)
-        worst = max(worst, close(f"whole step {dt_name} t={t}", ks, rs[:, :BEAM], atol=tol))
-        compared += ids_agree(f"whole step {dt_name} t={t}", ki, rs, ri, tol)
+            packed, cache_r, x, src_t, t, scores, finished, topk=beam + 1, **kw)
+        worst = max(worst, close(f"whole step {dt_name}{tag} t={t}", ks, rs[:, :beam],
+                                 atol=tol))
+        compared += ids_agree(f"whole step {dt_name}{tag} t={t}", ki, rs, ri, tol)
         tokens, scores = ki[:, 0].long(), ks[:, :1].contiguous()
         if t == 3:   # beam reorder: every beam adopts beam 0's ancestry
-            src_t = src_t[:, (torch.arange(BK, device=dev) // BEAM) * BEAM]
+            src_t = src_t[:, (torch.arange(bk, device=dev) // beam) * beam]
         if t == 5:   # a third of the rows finish
-            finished = (torch.arange(BK, device=dev) % 3 == 0).float()[:, None]
+            finished = (torch.arange(bk, device=dev) % 3 == 0).float()[:, None]
         src_t[t + 1] = own
-    cache_err = max(close(f"whole step {dt_name} {c}", cache_k[c], cache_r[c], atol=tol)
+    cache_err = max(close(f"whole step {dt_name}{tag} {c}", cache_k[c], cache_r[c], atol=tol)
                     for c in ("k_self", "v_self"))
+    line = dict(num_heads=model.num_heads, items=items, beam=beam, max_abs_err=worst,
+                cache_err=cache_err, ids_compared=compared, ids_total=8 * bk * beam)
+    if not timed:
+        say(f"whole_step_{dt_name}{tag}", **line)
+        return
     step = bench(lambda: fd.fused_decode_step(
-        packed, cache_k, x, src_t, 8, scores, finished, topk=BEAM, **kw), iters=5, reps=3)
+        packed, cache_k, x, src_t, 8, scores, finished, topk=beam, **kw), iters=5, reps=3)
     plain = bench(lambda: fd.fused_decode_step_reference(
-        packed, cache_r, x, src_t, 8, scores, finished, topk=BEAM, **kw), iters=5, reps=3)
-    say(f"whole_step_{dt_name}{tag}", num_heads=model.num_heads, max_abs_err=worst, cache_err=cache_err, ids_compared=compared,
-        ids_total=8 * BK * BEAM, pos=8, step_device_ms=step[0], step_wall_ms=step[1],
-        plain_device_ms=plain[0], plain_wall_ms=plain[1])
+        packed, cache_r, x, src_t, 8, scores, finished, topk=beam, **kw), iters=5, reps=3)
+    say(f"whole_step_{dt_name}{tag}", **line, pos=8, step_device_ms=step[0],
+        step_wall_ms=step[1], plain_device_ms=plain[0], plain_wall_ms=plain[1])
 
 
 def phase_wide_heads(fd, torch, dev, pipe):
@@ -1135,10 +1170,34 @@ def phase_probes(torch, dev):
     return table, counts
 
 
+def perturbed(variables: dict) -> dict:
+    """The JAX-layout ``variables`` with BatchNorm statistics and biases moved
+    off their init (0/1 and 0), seeded: in place, returned."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+
+    def walk(tree, stats):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf, stats)
+            elif stats and name == "mean":
+                leaf += 0.1 * rng.standard_normal(leaf.shape, np.float32)
+            elif stats and name == "var":
+                leaf *= 0.5 + rng.random(leaf.shape, np.float32)
+            elif not stats and name in ("bias", "bq", "bo", "kv_bias"):
+                leaf += 0.1 * rng.standard_normal(leaf.shape, np.float32)
+
+    walk(variables["params"], False)
+    walk(variables["batch_stats"], True)
+    return variables
+
+
 def make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **cfg_kw):
     """The flagship pipeline with seeded weights whose BatchNorm statistics
     and biases are perturbed (they init to 0/1), decoder (and fused backbone)
-    weights packed again after the perturbation."""
+    weights packed again after the perturbation, which is made on the card's
+    copy after the cast."""
     from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import BatchNorm32
 
     cfg = Config(beam_search_n=BEAM, compute_dtype="bfloat16", decode_batch=B, **cfg_kw)
@@ -1326,6 +1385,287 @@ def phase_server(torch, pipe, offline, img_dir):
         device_batch_ms=stats["device_batch_ms"], latency_ms=[b["latency_ms"] for _, b in replies])
 
 
+def write_val_split(root: Path, tokenizer, n: int) -> tuple[str, dict]:
+    """A synthetic COCO split ``val2017`` under ``root``: ``n`` seeded 512²
+    PNGs, one caption each from the tokenizer's words. Each image is a dim
+    noise floor over a colour of its own with a bright band at a place of its
+    own, so the encoder tells them apart (uniform noise looks alike to it).
+    Returns ``root`` and the pixels by image id."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    words = [w for w in tokenizer.index_word.values() if w.startswith("w")]
+    img_dir = root / "images" / "val2017"
+    img_dir.mkdir(parents=True)
+    (root / "annotations").mkdir()
+    images, anns, pixels = [], [], {}
+    for i in range(n):
+        img_id = 9000 + i
+        a = rng.integers(0, 60, (SIZE, SIZE, 3)) + rng.integers(0, 120, 3)
+        lo = rng.integers(0, SIZE - SIZE // 8)
+        a[lo:lo + SIZE // 8] = 255
+        pixels[img_id] = a.astype(np.uint8)
+        (img_dir / f"{img_id}.png").write_bytes(png_bytes(pixels[img_id]))
+        images.append({"id": img_id, "file_name": f"{img_id}.png"})
+        anns.append({"id": i + 1, "image_id": img_id,
+                     "caption": " ".join(rng.choice(words, rng.integers(5, 13)))})
+    (root / "annotations" / "captions_val2017.json").write_text(
+        json.dumps({"images": images, "annotations": anns}))
+    return str(root), pixels
+
+
+def eval_variables(Config, Pipeline, tokenizer) -> dict:
+    """The weights of the evaluate phase, in the JAX layout: the flagship's
+    seeded float32 init (built on the host), ``perturbed``, then scaled as
+    the CPU tests scale theirs (``tests/test_torch_slice.py``: the head
+    trunks' convs × 10, the token embedding × 20, the vocabulary projection
+    × 8), so the captions depend on the image."""
+    from fpn_mt_image_captioning_torch.weights import to_flax
+
+    seeded = Pipeline(tokenizer, MAX_LEN, Config(compute_dtype="float32"), seed=0, device="cpu")
+    variables = perturbed(to_flax(seeded.transformer))
+    params = variables["params"]
+    for trunk in ("regression_trunk", "classification_trunk"):
+        for conv in params["encoder"]["feature_extractor"][trunk].values():
+            conv["kernel"] *= 10.0
+    params["decoder"]["embedding"]["embedding"] *= 20.0
+    params["final_layer"]["kernel"] *= 8.0
+    return variables
+
+
+def captions_of(pipe, ids, pixels, batch) -> list[dict]:
+    """``predict_batch`` over ``pixels`` in the order ``ids``, in batches of
+    ``batch`` padded as ``iter_batches`` pads them (the last image repeated):
+    the result list ``evaluate`` must give, made without the data layer."""
+    import numpy as np
+
+    out = []
+    for start in range(0, len(ids), batch):
+        chunk = ids[start : start + batch]
+        imgs = [pixels[i] for i in chunk]
+        seqs, lengths = pipe.predict_batch(np.stack(imgs + imgs[-1:] * (batch - len(chunk))))
+        out += [{"image_id": i, "caption": pipe.to_caption(seqs[k], lengths[k])}
+                for k, i in enumerate(chunk)]
+    return out
+
+
+def bitwise_equal(a, b) -> bool:
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def evaluate_timed(pipe, split) -> tuple[list, float, float]:
+    """``pipe.evaluate(split)``: results, wall seconds, and seconds inside
+    ``predict_batch`` (encode and beam search; its outputs come back to the
+    host, so each call ends synchronised)."""
+    inner, spent = pipe.predict_batch, []
+
+    def timed(images, beam_n=None):
+        t0 = time.perf_counter()
+        out = inner(images, beam_n)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    pipe.predict_batch = timed
+    try:
+        t0 = time.perf_counter()
+        results = pipe.evaluate(split)
+        wall = time.perf_counter() - t0
+    finally:
+        del pipe.predict_batch
+    return results, wall, sum(spent)
+
+
+def trees_equal(a, b) -> bool:
+    """Two nested dicts of numpy arrays with the same keys and bitwise-equal
+    leaves."""
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(
+            trees_equal(a[k], b[k]) for k in b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def phase_evaluate_kernels(fd, torch, dev, pipe):
+    """The decode kernels at the evaluation path's shapes (bf16, beam 4,
+    decode_batch 16: 64 rows, Lenc 16, top 4), each held to its plain version
+    with the tolerances of phases 3 and 7: (c) at positions 1, 8, 30 and 59
+    through a random ancestry of groups of 4 (cache writes bitwise equal),
+    (d) over the 16 items' K/V, (e) over 64 rows, and ``fused_decode_step``
+    over 8 synchronised steps on the flagship's weights (``pipe``). (a) and
+    (b) at 64 rows are held in phase 3."""
+    g = torch.Generator().manual_seed(4444)
+    beam, items = EVAL_BEAM, EVAL_ITEMS
+    bk, lpad, layer = items * beam, 64, 2
+    tol = dict(atol=1e-2, rtol=1e-2)
+    rand = lambda *shape: torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+    qkv, caches = rand(bk, 3 * D), (rand(NL, lpad, bk, D), rand(NL, lpad, bk, D))
+    src_t = torch.randint(0, beam, (lpad, bk), generator=g, dtype=torch.int32).to(dev)
+    errs = {}
+    for pos in SELF_POSITIONS:
+        mine, theirs = [c.clone() for c in caches], [c.clone() for c in caches]
+        label = f"decoder_self_attention[pos={pos},beam={beam},rows={bk}]"
+        errs[f"self_attention_pos{pos}"] = close(
+            label, fd.decoder_self_attention(qkv, *mine, layer, pos, src_t, beam, H),
+            fd.decoder_self_attention_reference(qkv, *theirs, layer, pos, src_t, beam, H), **tol)
+        if not all(torch.equal(a, b) for a, b in zip(mine, theirs)):
+            raise SmokeFailure(f"{label}: cache writes differ")
+    q, kv_cross = rand(bk, D), rand(NL, LENC, items, 2 * D)
+    errs["cross_attention"] = close(
+        f"decoder_cross_attention[Lenc={LENC},beam={beam},items={items}]",
+        fd.decoder_cross_attention(q, kv_cross, layer, beam, H),
+        fd.decoder_cross_attention_reference(q, kv_cross, layer, beam, H), **tol)
+    logits, scores, finished = topk_inputs(torch, dev, bk)
+    got_s, got_i = fd.decoder_logsoftmax_topk(logits, scores, finished, beam)
+    want_s, want_i = fd.decoder_logsoftmax_topk_reference(logits, scores, finished, beam)
+    label = f"decoder_logsoftmax_topk[rows={bk},topk={beam}]"
+    errs["logsoftmax_topk"] = close(f"{label} scores", got_s, want_s, atol=3e-4)
+    if not torch.equal(got_i, want_i):
+        raise SmokeFailure(f"{label}: ids differ")
+    say("evaluate_shapes", rows=bk, beam=beam, items=items, lenc=LENC, max_abs_err=errs)
+    phase_whole_step(fd, torch, dev, pipe, "bfloat16", tag="_evaluate_shapes", items=items,
+                     beam=beam, timed=False)
+
+
+def phase_evaluate(fd, dev, Config, Pipeline, tokenizer, workdir):
+    """Evaluation at full width (bf16, beam 4, decode_batch 16) on weights
+    whose captions depend on the image (``eval_variables``): the weights
+    through a Flax msgpack file and back, ``evaluate`` over a synthetic split
+    of ``EVAL_IMAGES`` PNGs (counters reset just before, read just after),
+    its results against ``predict_batch`` on the split's pixels as written
+    (the ids in the order the seeded shuffle gives, more than one distinct
+    caption), ``metric_eval``, the same on the fused backbone, both encodes'
+    captions equal in float32, then the ``test.py`` and ``evaluate.py``
+    entry points. Returns the launches of the eager and the fused run."""
+    import contextlib
+    import io
+    import random
+
+    from fpn_mt_image_captioning_torch import evaluate as pt_evaluate
+    from fpn_mt_image_captioning_torch import test as pt_test
+    from fpn_mt_image_captioning_torch.data.dataset import COCO_Images_ImageID, load_image
+    from fpn_mt_image_captioning_torch.data.tokenizer import store_tokenizer_to_path
+    from fpn_mt_image_captioning_torch.weights import read_flax_msgpack
+
+    root = Path(workdir) / "eval"
+    datadir, pixels = write_val_split(root / "data", tokenizer, EVAL_IMAGES)
+    store_tokenizer_to_path(tokenizer, root / "tokenizer.json")
+    (root / "info.json").write_text(json.dumps({"max_seq_len": MAX_LEN}))
+    weights = str(root / "weights.msgpack")
+    cfg = Config(datadir=datadir, n_val_dataset=EVAL_IMAGES, is_training=False,
+                 tokenizer_filename=str(root / "tokenizer.json"),
+                 additional_filename=str(root / "info.json"), transformer_weight_path=weights,
+                 transformer_checkpoint_path=str(root / "no_checkpoint"),
+                 result_dir=str(root / "results"))
+    if (cfg.compute_dtype, cfg.beam_search_n, cfg.decode_batch) != \
+            ("bfloat16", EVAL_BEAM, EVAL_ITEMS):
+        raise SmokeFailure(f"evaluation defaults moved: {cfg}")
+
+    # the weights through a file: a float32 pipeline writes the bits of
+    # ``variables``; from_config reads them into the bf16 model they give
+    variables = eval_variables(Config, Pipeline, tokenizer)
+    Pipeline(tokenizer, MAX_LEN, cfg.replace(compute_dtype="float32"), variables,
+             device=dev).save_weights(weights)
+    if not trees_equal(read_flax_msgpack(weights), variables):
+        raise SmokeFailure("the weight file differs from the weights saved")
+    pipe = Pipeline.from_config(cfg)
+    a = Pipeline(tokenizer, MAX_LEN, cfg, variables, device=dev).transformer.state_dict()
+    b = pipe.transformer.state_dict()
+    if a.keys() != b.keys() or not all(bitwise_equal(a[k], b[k]) for k in a):
+        raise SmokeFailure("weights differ after save_weights and from_config")
+    del a, b, variables
+
+    def split():
+        return COCO_Images_ImageID(datadir, cfg.datatype_val, EVAL_IMAGES, image_size=SIZE,
+                                   seed=cfg.seed)
+
+    order = sorted(pixels)
+    random.Random(cfg.seed).shuffle(order)   # the ids in the order evaluation visits them
+    batches = -(-EVAL_IMAGES // cfg.decode_batch)
+    pipe.evaluate(split())                            # warm-up
+    reset_all_counts()
+    results, wall, predict_s = evaluate_timed(pipe, split())
+    counts = read_all_counts()
+    steps = fd.decoder_logsoftmax_topk.launches
+    check_decode_counts(fd, decode_per_step(fd), steps)
+    if counts["fused_ir_block"] != 0 or not 0 < steps <= batches * MAX_LEN:
+        raise SmokeFailure(f"evaluate: {steps} decode steps, {counts['fused_ir_block']} "
+                           "backbone launches")
+    if [r["image_id"] for r in results] != order:
+        raise SmokeFailure(f"evaluate: image ids {[r['image_id'] for r in results]}, "
+                           f"want {order}")
+    want = captions_of(pipe, order, pixels, cfg.decode_batch)
+    if results != want:
+        raise SmokeFailure(f"evaluate: {sum(r != w for r, w in zip(results, want))} of "
+                           f"{len(want)} results differ from predict_batch")
+    distinct = len({r["caption"] for r in results})
+    if distinct < 2:
+        raise SmokeFailure("evaluate: every caption is the same, so no check here can tell "
+                           "the images apart")
+    os.makedirs(cfg.result_dir, exist_ok=True)
+    with open(cfg.result_file, "w") as out:
+        json.dump(results, out)
+    t0 = time.perf_counter()
+    cider = pipe.metric_eval(cfg.result_file)
+    metric_s = time.perf_counter() - t0
+    metrics = dict(pipe.metric_eval.eval)
+    keys = ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr"]
+    if list(metrics) != keys or not all(math.isfinite(v) for v in metrics.values()) \
+            or cider != metrics["CIDEr"]:
+        raise SmokeFailure(f"metric_eval: {metrics}")
+
+    # the fused backbone: 17 launches an encode, one encode a batch
+    fused = Pipeline.from_config(cfg.replace(fused_backbone=True))
+    fused.evaluate(split())                           # warm-up
+    reset_all_counts()
+    fused_results, fused_wall, fused_predict_s = evaluate_timed(fused, split())
+    fused_counts = read_all_counts()
+    check_decode_counts(fd, decode_per_step(fd), fd.decoder_logsoftmax_topk.launches)
+    if fused_counts["fused_ir_block"] != N_BLOCKS * batches:
+        raise SmokeFailure(f"fused evaluate: {fused_counts['fused_ir_block']} backbone "
+                           f"launches for {batches} batches × {N_BLOCKS}")
+    if fused_results != captions_of(fused, order, pixels, cfg.decode_batch):
+        raise SmokeFailure("fused evaluate: results differ from its predict_batch")
+    bf16_equal = sum(f == r for f, r in zip(fused_results, results))
+    del fused
+    # in bf16 the two encodes round apart far enough to flip a beam's choice,
+    # so their captions are compared in float32, where they agree to ~1e-5
+    cfg32 = cfg.replace(compute_dtype="float32")
+    eager32 = Pipeline.from_config(cfg32).evaluate(split())
+    fused32 = Pipeline.from_config(cfg32.replace(fused_backbone=True)).evaluate(split())
+    if fused32 != eager32 or len({r["caption"] for r in eager32}) < 2:
+        raise SmokeFailure(f"float32 evaluate: {sum(f != e for f, e in zip(fused32, eager32))}"
+                           f" of {len(eager32)} fused-backbone captions differ from the eager "
+                           "encode's, or all are the same")
+
+    # the entry points, each building its pipeline from the files
+    first = Path(datadir) / "images" / "val2017" / "9000.png"
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        one = pt_test.main(cfg, str(first))
+        evaluated = pt_evaluate.main(cfg.replace(result_dir=str(root / "results_main")))
+    printed = out.getvalue().splitlines()
+    if one != pipe.evaluate_img(load_image(str(first), None, SIZE)[0]) or \
+            not (root / "results" / "9000_captions_result.json").is_file():
+        raise SmokeFailure(f"test.py: {one}")
+    if evaluated != results or printed[-7:] != [f"{k}: {metrics[k]:.4f}" for k in keys]:
+        raise SmokeFailure(f"evaluate.py: printed {printed[-8:]}")
+    say("evaluate", card=card_line(), images=EVAL_IMAGES, decode_batch=cfg.decode_batch,
+        beam=cfg.beam_search_n, batches=batches, decode_steps=steps, wall_s=wall,
+        images_per_s=EVAL_IMAGES / wall, decode_s=predict_s, host_s=wall - predict_s,
+        metric_eval_s=metric_s, metrics=metrics, distinct_captions=distinct,
+        launches={k: n for k, n in counts.items() if k not in PROBE_TPU_KERNELS},
+        fused=dict(wall_s=fused_wall, images_per_s=EVAL_IMAGES / fused_wall,
+                   decode_s=fused_predict_s, bf16_captions_equal_to_eager=bf16_equal,
+                   float32_captions_equal_to_eager=len(eager32),
+                   launches={k: n for k, n in fused_counts.items()
+                             if k not in PROBE_TPU_KERNELS}),
+        weights_bytes=os.path.getsize(weights), weights_round_trip_bitwise=True,
+        equal_to_predict_batch=True, test_py=one[0]["caption"][:60],
+        evaluate_py_equal=True, captions=sorted({r["caption"][:40] for r in results})[:8])
+    return counts, fused_counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1393,10 +1733,15 @@ def main() -> int:
         raise SmokeFailure("fused_backbone=True did not select the fused encode")
     counts["fused_ir_block"] = phase_fused_main(
         fd, fb, torch, fused, pipe, eager64)["fused_ir_block"]
+    phase_evaluate_kernels(fd, torch, dev, pipe)
     del pipe
     with tempfile.TemporaryDirectory() as workdir:
         offline, img_dir = phase_cli(fd, torch, fused, workdir)
         phase_server(torch, fused, offline, img_dir)
+        del fused
+        eval_counts, fused_eval_counts = phase_evaluate(
+            fd, dev, Config, Pipeline, tokenizer, workdir)
+    eval_counts["fused_ir_block"] = fused_eval_counts["fused_ir_block"]
 
     counts.update(probe_counts)
     kernels = []
@@ -1413,7 +1758,8 @@ def main() -> int:
                 source = SOURCE
         kernels.append({"name": k.__name__, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[k.__name__], **row,
-                        "bound_ms": bound_ms, "bound_by": bound_by})
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "evaluate_launches": eval_counts[k.__name__]})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -13,9 +13,11 @@ what it rejects) while the card captions the previous batch; every batch is
 times N single-image requests end to end.
 
 The pipeline comes from ``Pipeline.from_config``: the tokenizer and
-``max_seq_len`` files of the Config, seeded weights, and a refusal where a
-checkpoint exists (reading one is not ported yet). ``--artifact`` (a compiled
-export) is not ported either and raises.
+``max_seq_len`` files of the Config, and the weights of the Flax msgpack file
+``--transformer_weight_path`` where it exists (the JAX package's
+``Pipeline.save_weights``); without it seeded weights, or a refusal where an
+Orbax checkpoint exists (reading one is not ported). ``--artifact`` (a
+compiled export) is not ported either and raises.
 """
 
 from __future__ import annotations

@@ -26,7 +26,10 @@ body is a 400, an unknown path a 404.
         [--request_timeout_s=1800] [--beam_search_n=8] [--fused_backbone=true]
         [any Config --key=value]
 
-Sampling (``--decode=sample``) and serving a compiled export
+The weights are those of ``Pipeline.from_config``: the Flax msgpack file
+``--transformer_weight_path`` where it exists, else the seeded init (or a
+refusal where an Orbax checkpoint exists). Sampling (``--decode=sample``) and
+serving a compiled export
 (``--artifact``) are not ported yet and raise.
 """
 

@@ -2,16 +2,20 @@
 ``fpn_mt_image_captioning_tpu/train/pipeline.py``).
 
 ``predict_batch`` encodes a batch of images and runs the batched beam search
-on the fused decode step; ``to_caption`` detokenizes. With
-``Config.fused_backbone`` (and ``use_pallas``) the encode runs the MobileNetV2
-backbone as fused inverted-residual kernels (``ops/fused_backbone.py``); a
-fault there raises, it never falls back to the eager encode. Checkpoint
-restore, training, ``evaluate`` and the multi-device paths are not ported yet.
+on the fused decode step; ``to_caption`` detokenizes; ``evaluate`` captions a
+validation split and ``metric_eval`` scores the result file (BLEU-1..4,
+METEOR, ROUGE-L, CIDEr-D). With ``Config.fused_backbone`` (and
+``use_pallas``) the encode runs the MobileNetV2 backbone as fused
+inverted-residual kernels (``ops/fused_backbone.py``); a fault there raises,
+it never falls back to the eager encode. Orbax checkpoint restore, training
+and the multi-device paths are not ported yet.
 
-Weights come either from the JAX package (its variables tree as numpy arrays,
-through ``weights.from_flax``) or from a seeded init. With
-``Config.compute_dtype`` bfloat16 the weights are cast once at construction;
-LayerNorm, BatchNorm, softmax and beam scores stay float32.
+Weights come from the JAX package (its variables tree as numpy arrays, or the
+Flax msgpack file its ``Pipeline.save_weights`` writes: ``load_weights``, and
+``from_config`` where ``Config.transformer_weight_path`` exists) or from a
+seeded init. With ``Config.compute_dtype`` bfloat16 the weights the card runs
+are cast once; LayerNorm, BatchNorm, softmax and beam scores stay float32.
+``save_weights`` writes the served weights, so it needs a float32 pipeline.
 
 The pipeline runs on ``device`` — by default the CUDA card; without one it
 raises unless the caller asks for ``device="cpu"`` (which runs the plain
@@ -20,6 +24,7 @@ PyTorch versions of the kernels).
 
 from __future__ import annotations
 
+import functools
 import os
 from collections.abc import Mapping
 
@@ -28,13 +33,14 @@ import torch
 
 from ..config import Config
 from ..data.dataset import load_max_seq_len
+from ..data.metrics import MetricEval
 from ..data.tokenizer import Tokenizer, load_tokenizer_from_path
 from ..decode.beam_search import beam_search, cast_for_inference
 from ..models.transformer import Transformer
 from ..ops.fused_backbone import (fused_encode, pack_backbone_weights, packed_to,
                                   supports_fused_backbone)
 from ..ops.fused_decoder import FUSED_ACTIVATIONS, pack_decoder_weights
-from ..weights import from_flax, init_weights
+from ..weights import from_flax, init_weights, read_flax_msgpack, to_flax, write_flax_msgpack
 
 __all__ = ["Pipeline", "resolve_device"]
 
@@ -77,24 +83,34 @@ class Pipeline:
         self.target_vocab_size = len(self.tokenizer.index_word)
         self.start_token = self.tokenizer.word_index["<start>"]
         self.end_token = self.tokenizer.word_index["<end>"]
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        if variables is not None:
+            self._load_variables(variables)
+        else:
+            model = self._new_model()
+            init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
+            self._use(model)
 
+    def _new_model(self) -> Transformer:
+        """The float32 model on the CPU, its weights not yet set."""
+        cfg = self.config
         with torch.device("meta"):
             model = Transformer(
                 num_layers=cfg.num_layers, d_model=cfg.d_model, num_heads=cfg.num_heads,
                 dff=cfg.dff, input_vocab_size=cfg.input_vocab_size,
-                target_vocab_size=self.target_vocab_size, max_seq_len=max_seq_len,
+                target_vocab_size=self.target_vocab_size, max_seq_len=self.max_seq_len,
                 num_pyramids=cfg.num_of_pyramids, baseline_index=cfg.baseline_index,
                 backbone_name=cfg.backbone, n_conv_submodule=cfg.n_conv_submodule,
                 activation=cfg.activation,
             )
-        model.to_empty(device="cpu")
-        if variables is not None:
-            model.load_state_dict(from_flax(variables), strict=True)
-        else:
-            init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
-        self.dtype = getattr(torch, cfg.compute_dtype)
+        return model.to_empty(device="cpu")
+
+    def _use(self, model: Transformer) -> None:
+        """Serve ``model`` (float32, on the CPU): cast, move and pack its
+        weights for the card."""
         # the fused backbone folds BatchNorm from the float32 weights, before
         # the cast below (the JAX package folds float32 parameters too)
+        cfg = self.config
         self.backbone_packed = None
         if cfg.use_pallas and cfg.fused_backbone and supports_fused_backbone(cfg.backbone):
             self.backbone_packed = packed_to(pack_backbone_weights(
@@ -102,26 +118,68 @@ class Pipeline:
         self.transformer = cast_for_inference(model.eval(), self.dtype).to(self.device)
         self.packed = pack_decoder_weights(self.transformer, self.dtype)
 
+    def _load_variables(self, variables: Mapping) -> None:
+        """Serve the JAX package's ``{"params", "batch_stats"}`` tree; a tree
+        that does not fit this model raises."""
+        model = self._new_model()
+        model.load_state_dict(from_flax(variables), strict=True)
+        self._use(model)
+
+    def load_weights(self, path: str) -> None:
+        """Serve the weights of a Flax msgpack file (the JAX package's
+        ``Pipeline.save_weights``, or this class's)."""
+        self._load_variables(read_flax_msgpack(path))
+
+    def save_weights(self, path: str) -> None:
+        """Write the served weights as the Flax msgpack file that the JAX
+        package's ``Pipeline.load_weights`` reads. A pipeline that computes in
+        another dtype than float32 serves weights rounded from the float32 ones
+        it was given, which it does not keep, so it raises."""
+        if self.dtype != torch.float32:
+            raise ValueError(
+                f"save_weights: this pipeline serves {self.config.compute_dtype} weights "
+                "rounded from float32 ones it does not keep; save from a pipeline with "
+                "compute_dtype='float32'")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        write_flax_msgpack(path, to_flax(self.transformer))
+
     @classmethod
     def from_config(cls, cfg: Config, *, device: str | torch.device | None = None) -> "Pipeline":
-        """The serving pipeline the CLI and the server build: tokenizer from
+        """The pipeline the entry points build: tokenizer from
         ``cfg.tokenizer_filename``, ``max_seq_len`` from
-        ``cfg.additional_filename``. The JAX package restores the latest Orbax
-        checkpoint under ``cfg.transformer_checkpoint_path``, or boots from
-        ``cfg.retinanet_weight_path``; reading either is not ported, so where
-        one exists this raises instead of serving seeded weights in its
-        place. With neither, the weights are the seeded init, as there."""
-        ckpt = cfg.transformer_checkpoint_path
-        if ckpt and os.path.isdir(ckpt) and os.listdir(ckpt):
-            raise NotImplementedError(
-                f"a checkpoint exists under {ckpt!r}, and reading Orbax checkpoints is not "
-                "ported yet; serving seeded weights in its place would be wrong")
-        if cfg.retinanet_weight_path:
-            raise NotImplementedError(
-                f"retinanet_weight_path={cfg.retinanet_weight_path!r}: importing Keras "
-                "RetinaNet weights is not ported yet")
+        ``cfg.additional_filename``, and the weights of the Flax msgpack file
+        ``cfg.transformer_weight_path`` where it exists (root ``train.py``
+        writes it at the end of training). Without it the JAX package restores
+        the latest Orbax checkpoint under ``cfg.transformer_checkpoint_path``,
+        or boots from ``cfg.retinanet_weight_path``; reading either is not
+        ported, so where one exists this raises instead of serving seeded
+        weights in its place. With neither, the weights are the seeded init,
+        as there."""
+        variables = None
+        if os.path.isfile(cfg.transformer_weight_path):
+            variables = read_flax_msgpack(cfg.transformer_weight_path)
+        else:
+            ckpt = cfg.transformer_checkpoint_path
+            if ckpt and os.path.isdir(ckpt) and os.listdir(ckpt):
+                raise NotImplementedError(
+                    f"a checkpoint exists under {ckpt!r}, and reading Orbax checkpoints is "
+                    "not ported yet; serving seeded weights in its place would be wrong. "
+                    "Write the weights as Flax msgpack with the JAX package's "
+                    "Pipeline.save_weights (train.py writes cfg.transformer_weight_path at "
+                    f"the end of training; no file at {cfg.transformer_weight_path!r}) and "
+                    "pass --transformer_weight_path=PATH")
+            if cfg.retinanet_weight_path:
+                raise NotImplementedError(
+                    f"retinanet_weight_path={cfg.retinanet_weight_path!r}: importing Keras "
+                    "RetinaNet weights is not ported yet")
         return cls(cfg.tokenizer_filename, load_max_seq_len(cfg.additional_filename), cfg,
-                   device=device)
+                   variables, device=device)
+
+    @functools.cached_property
+    def metric_eval(self) -> MetricEval:
+        """The scorer of ``cfg.datatype_val`` under ``cfg.datadir``, built on
+        first use, so a pipeline starts without a dataset."""
+        return MetricEval(self.config.datadir, self.config.datatype_val)
 
     def close(self) -> None:
         """Nothing to release (the JAX pipeline closes its checkpoint manager)."""
@@ -187,3 +245,36 @@ class Pipeline:
         """Detokenize one decoded row (first ``length`` tokens) to a caption."""
         tokens = [int(t) for t in seq_row[:length]]
         return self.tokenizer.sequences_to_texts([tokens])[0]
+
+    # the JAX package's older name (kept for parity with its signatures)
+    _to_caption = to_caption
+
+    def evaluate(self, generator) -> list[dict]:
+        """Caption every (img, imgId) of ``generator``: a
+        ``COCO_Images_ImageID`` decodes in batches of ``Config.decode_batch``
+        (uint8, the padded tail dropped), any other iterable of (img, imgId)
+        one image at a time. Returns ``[{"image_id", "caption"}, ...]``.
+
+        Evaluating a corpus sharded over several processes is not ported."""
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            raise NotImplementedError("evaluate over more than one process is not ported yet")
+        results = []
+        batch = max(self.config.decode_batch, 1)
+        if hasattr(generator, "iter_batches") and batch > 1:
+            for imgs, img_ids, valid in generator.iter_batches(batch,
+                                                               as_uint8=self.accepts_uint8):
+                seqs, lengths = self.predict_batch(imgs)
+                for i in range(valid):
+                    results.append({"image_id": img_ids[i],
+                                    "caption": self.to_caption(seqs[i], lengths[i])})
+            return results
+        for img, img_id in generator:
+            seqs, lengths = self.predict_batch(np.asarray(img)[None])
+            results.append({"image_id": img_id, "caption": self.to_caption(seqs[0], lengths[0])})
+        return results
+
+    def evaluate_img(self, img) -> list[dict]:
+        """One image's result list, ``[{"image_id": 0, "caption"}]``."""
+        seqs, lengths = self.predict_batch(np.asarray(img)[None])
+        return [{"image_id": 0, "caption": self.to_caption(seqs[0], lengths[0])}]

@@ -7,7 +7,8 @@ ancestries shared and distinct, beam 1, Lenc 1 to 100, ragged row groups,
 pointers off a 16-byte boundary; top-k at vocabularies of 7 to 13000, topk
 up to 128, exact ties and totals that rounding ties; the backbone block at
 every flagship shape and its occupancy), CUDA-graph captures, a split-K product run twice and the wgmma
-linear's phase stamps. Needs a CUDA card and nvcc: every test here
+linear's phase stamps; and ``Pipeline.evaluate`` on a tiny synthetic split
+against the CPU route. Needs a CUDA card and nvcc: every test here
 skips on a machine without one. On the card (which has no JAX, so
 the JAX-side conftest is skipped):
 
@@ -602,3 +603,37 @@ def test_probe_slab_copy_bad_tensor_map_raises(dev):
     assert pr.slab_copy_4d.launches == before
     with pytest.raises(ValueError, match="16 bytes"):
         pr.slab_copy_flat_loads(torch.zeros(1, 10, 3, 4, dtype=torch.bfloat16, device=dev), 4, 2)
+
+
+def test_evaluate_on_the_card(dev, tmp_path):
+    """``Pipeline.evaluate`` on the card over a tiny synthetic split (five
+    images in batches of two, the tail padded): every decode kernel launches
+    its count a step, and the result list equals the CPU route's (the plain
+    versions) on the same weights."""
+    from fixtures import make_synthetic_dataset
+    from fpn_mt_image_captioning_torch.config import Config
+    from fpn_mt_image_captioning_torch.data.dataset import COCO_Images_ImageID
+    from fpn_mt_image_captioning_torch.data.tokenizer import REFERENCE_FILTERS, Tokenizer
+    from fpn_mt_image_captioning_torch.train.pipeline import Pipeline
+
+    datadir = make_synthetic_dataset(str(tmp_path), n_train=1, n_val=5, image_size=256)
+    tok = Tokenizer(num_words=100, oov_token="unk", filters=REFERENCE_FILTERS)
+    tok.fit_on_texts(["<start> " + " ".join(f"w{i}" for i in range(j, j + 5)) + " <end>"
+                      for j in range(20)])
+    tok.add_padding_token()
+    cfg = Config(image_input_size=256, backbone="mobilenet224_0.35", d_model=32, num_layers=2,
+                 num_heads=4, dff=64, beam_search_n=3, compute_dtype="float32", decode_batch=2,
+                 datadir=datadir)
+    cpu = Pipeline(tok, 8, cfg, seed=3, device="cpu")
+    card = Pipeline(tok, 8, cfg, seed=3, device=dev)   # the same seeded init
+
+    def split():
+        return COCO_Images_ImageID(datadir, cfg.datatype_val, 5, image_size=256, seed=0)
+
+    fd.reset_launch_counts()
+    got = card.evaluate(split())
+    steps = fd.decoder_logsoftmax_topk.launches
+    nl = cfg.num_layers
+    assert steps > 0 and [k.launches for k in fd.KERNELS] == [
+        steps * n for n in (6 * nl + 1, 3 * nl, nl, nl, 1)]
+    assert got == cpu.evaluate(split()) and len(got) == 5

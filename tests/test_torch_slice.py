@@ -213,11 +213,16 @@ def test_kernel_wrapper_refuses_other_devices():
         decoder_linear(x, torch.zeros(3, 4, device="meta"), torch.zeros(4, device="meta"))
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "fpn_mt_image_captioning_tpu", "msgpack", "h5py", "orbax",
+             "tensorstore")
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port (the CLI, the server, the fused
-    backbone, the image loader among them) and ``chip_smoke``, in a fresh
-    interpreter, loads neither JAX, Flax nor the JAX package; no source
-    names them either."""
+    backbone, the image loader, the weight files, the metrics and the
+    evaluation entry points among them) and ``chip_smoke``, in a fresh
+    interpreter, loads neither JAX, Flax, the JAX package, msgpack, h5py,
+    Orbax nor tensorstore; no source names them either."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fpn_mt_image_captioning_torch as p\n"
@@ -225,7 +230,7 @@ def test_port_imports_no_jax():
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fpn_mt_image_captioning_tpu'))\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print(' '.join(names))\n"
     )
@@ -235,7 +240,10 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     imported = set(out.stdout.split())
     for name in ("caption", "serve", "ops.fused_backbone", "ops.fused_decoder",
-                 "runtime.native_loader", "data.dataset", "utils.profiling"):
+                 "runtime.native_loader", "data.dataset", "utils.profiling", "weights",
+                 "test", "evaluate", "show_results", "data.coco", "data.metrics",
+                 "data.metrics.ptb", "data.metrics.bleu", "data.metrics.rouge",
+                 "data.metrics.meteor", "data.metrics.cider", "utils.porter"):
         assert f"fpn_mt_image_captioning_torch.{name}" in imported, name
 
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
@@ -245,5 +253,5 @@ def test_port_imports_no_jax():
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             for name in names:
-                assert name.split(".")[0] not in ("jax", "flax", "fpn_mt_image_captioning_tpu"), \
+                assert name.split(".")[0] not in FORBIDDEN, \
                     f"{path.relative_to(REPO)} imports {name}"
