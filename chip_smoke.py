@@ -4,8 +4,9 @@ port builds, is right, and captions on the GPU.
 
     python3 chip_smoke.py
 
-Phases, in the order they run (each prints one line; any failure raises, so
-the script exits non-zero without its last line):
+Phases, in the order they run, except that 14 runs between the kernel
+checks that open 13 and phase 11 (each prints one line; any failure raises,
+so the script exits non-zero without its last line):
 
   1. environment — the card (nvidia-smi name and power limit), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions, so float32
@@ -114,10 +115,38 @@ the script exits non-zero without its last line):
      results, the metric table printed) from the files. One line: images/s,
      seconds in ``predict_batch`` and on the host, seconds in
      ``metric_eval``, with the card's name and power limit.
+ 14. decode modes — the non-fused KV-cached step (plain PyTorch, no decode
+     kernel) at full width. The checks of (a)-(c), (e) and (f) run on the
+     evaluate phase's weights (``eval_variables``: peaked logits, so greedy
+     choices stay clear of near ties), beam 8, float32 and bf16; (d) and
+     (g) on the main path's. (a) the non-fused and the fused fast beam
+     search in lock step, float32, batch 8 and 64: at every step the fused
+     step's top candidates within 1e-3 of the non-fused totals at the same
+     ids, its ids the non-fused ones wherever clear of a near tie (1e-3; the
+     count printed, none fails); free running, float32 sequences equal on
+     every item whose deciding candidate gaps stay above 1e-3 (the count
+     printed: beam-8 gaps on these weights fall to ~1e-5), and bf16 through
+     ``use_pallas=False``; (b) parity mode at batch 8, float32 and bf16:
+     the three crafted ties of tests/test_decode.py exact, parity equal to
+     greedy on items clear of a near tie; (c) ``sample_batch`` at batch 64,
+     bf16: a seed twice gives the same captions, temperature 0 greedy's on
+     clear items, mixed per-row temperature/top_p with ``top_k=5``; the five
+     decode kernels' counters 0 across the non-fused runs of (a)-(c); (d)
+     one sampling run on the fused backbone: ``fused_ir_block`` 17
+     launches; (e) the server in ``decode="sample"`` (float32): four
+     requests 200, ``top_p=0`` and ``temperature=nan`` 400, a
+     temperature-0 request the greedy caption of its padded batch; (f)
+     ``predict_with_attention`` (float32): the sequence ``predict_batch``'s,
+     12 weight tensors of (1, 8, L, L) and (1, 8, L, 16) whose rows sum to 1
+     within 1e-3, decode launches the steps × the per-step counts; the plot
+     where matplotlib imports; (g) images/s of the non-fused and fused
+     routes in turns at batch 8 and 64, parity at 8, ``sample_batch`` at 64
+     with and without ``top_p`` (bf16).
 
 Then the kernel table as one JSON line (every kernel: the decode step's, the
 backbone's and the probes'; ``launches`` from the main path's runs,
-``evaluate_launches`` from phase 13's), the card's name and power limit, and
+``evaluate_launches`` from phase 13's, ``decode_modes_launches`` from phase
+14's counted runs), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -134,6 +163,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -1200,7 +1230,8 @@ def make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **cfg_kw):
     copy after the cast."""
     from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import BatchNorm32
 
-    cfg = Config(beam_search_n=BEAM, compute_dtype="bfloat16", decode_batch=B, **cfg_kw)
+    cfg = Config(**{"beam_search_n": BEAM, "compute_dtype": "bfloat16", "decode_batch": B,
+                    **cfg_kw})
     pipe = Pipeline(tokenizer, MAX_LEN, cfg, seed=0, device=dev)
     with torch.no_grad():
         g = torch.Generator().manual_seed(7)
@@ -1528,7 +1559,7 @@ def phase_evaluate_kernels(fd, torch, dev, pipe):
                      beam=beam, timed=False)
 
 
-def phase_evaluate(fd, dev, Config, Pipeline, tokenizer, workdir):
+def phase_evaluate(fd, dev, Config, Pipeline, tokenizer, variables, workdir):
     """Evaluation at full width (bf16, beam 4, decode_batch 16) on weights
     whose captions depend on the image (``eval_variables``): the weights
     through a Flax msgpack file and back, ``evaluate`` over a synthetic split
@@ -1564,7 +1595,6 @@ def phase_evaluate(fd, dev, Config, Pipeline, tokenizer, workdir):
 
     # the weights through a file: a float32 pipeline writes the bits of
     # ``variables``; from_config reads them into the bf16 model they give
-    variables = eval_variables(Config, Pipeline, tokenizer)
     Pipeline(tokenizer, MAX_LEN, cfg.replace(compute_dtype="float32"), variables,
              device=dev).save_weights(weights)
     if not trees_equal(read_flax_msgpack(weights), variables):
@@ -1666,6 +1696,359 @@ def phase_evaluate(fd, dev, Config, Pipeline, tokenizer, workdir):
     return counts, fused_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the non-fused decode modes
+# ---------------------------------------------------------------------------
+NEAR_TIE = 1e-3   # a candidate gap under this may flip between two routes' roundings
+
+
+def seqs_in_range(name, seqs, lengths, batch) -> None:
+    import numpy as np
+
+    if seqs.shape != (batch, MAX_LEN) or seqs.dtype != np.int32 \
+            or not ((lengths >= 0) & (lengths <= MAX_LEN)).all() \
+            or (seqs < 0).any() or (seqs >= V).any():
+        raise SmokeFailure(f"{name}: sequences {seqs.shape} {seqs.dtype}, tokens or lengths "
+                           "out of range")
+
+
+def with_margins(torch, run):
+    """``run()`` — a search on the non-fused step — with each step's
+    candidates recorded. Returns its result and, per item, the smallest gap
+    that decides it: at every step between the beam-th and the next
+    candidate total (which hypotheses survive), and at the last step between
+    the first and the second (which one is returned). Where it is wider than
+    ``NEAR_TIE``, no rounding of another route flips a choice."""
+    from fpn_mt_image_captioning_torch.decode import beam_search as bs
+
+    top, gaps = bs._top, []
+
+    def recording(flat, k):
+        v = flat.topk(k + 1, dim=1).values
+        gaps.append((v[:, k - 1] - v[:, k], v[:, 0] - v[:, 1]))
+        return top(flat, k)
+
+    bs._top = recording
+    try:
+        out = run()
+    finally:
+        bs._top = top
+    margin = torch.stack([g for g, _ in gaps]).min(0).values
+    return out, torch.minimum(margin, gaps[-1][1]).cpu().numpy()
+
+
+def routed(pipe, **cfg):
+    """``pipe`` with other ``Config`` fields, sharing its weights."""
+    other = copy.copy(pipe)
+    other.config = pipe.config.replace(**cfg)
+    return other
+
+
+def timed(torch, fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def routes_in_lockstep(fd, torch, pipe, enc, beam: int) -> dict:
+    """The non-fused and the fused fast beam search driven in lock step over
+    ``enc``: at every step each route computes its step on the same state
+    (tokens, scores, finished rows, ancestry), the fused step's top-``beam``
+    candidates of each row are held to the non-fused totals at the same ids
+    (``close``, atol 1e-3) and its ids to the non-fused row's own top ones
+    wherever those are clear of a near tie (``ids_agree``); then both states
+    follow the non-fused choice. Free-running searches cannot be compared
+    so: their deciding gaps fall under 1e-5 within 60 steps on every item
+    (permutations of one word set score almost alike). Returns the largest
+    score error, the ids compared and the steps."""
+    from fpn_mt_image_captioning_torch.decode.beam_search import NEG_INF, _top
+    from fpn_mt_image_captioning_torch.models.positional import raw_positional_encoding
+
+    model, packed, dev = pipe.transformer, pipe.packed, enc.device
+    batch, bk = enc.shape[0], enc.shape[0] * beam
+    cache = model.init_cache(enc.repeat_interleave(beam, dim=0), MAX_LEN + 1)
+    fcache = fd.init_fused_cache(packed, enc, beam, MAX_LEN)
+    own_rows = torch.arange(bk, device=dev)
+    own_local = (own_rows % beam).to(torch.int32)
+    src = own_rows[:, None].repeat(1, MAX_LEN + 1)
+    src_t = own_local[None, :].repeat(fcache["k_self"].shape[1], 1)
+    group_base = torch.arange(batch, device=dev)[:, None] * beam
+    emb = model.decoder.embedding.weight.to(packed["wqkv"].dtype)
+    pe = torch.as_tensor(raw_positional_encoding(model.max_seq_len + model.max_position, D),
+                         device=dev).to(emb.dtype)
+    scores = torch.full((batch, beam), NEG_INF, device=dev)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((batch, beam), dtype=torch.bool, device=dev)
+    tokens = torch.full((bk,), pipe.start_token, dtype=torch.long, device=dev)
+    err, compared, t = 0.0, 0, 0
+    while t < MAX_LEN and not bool(finished.all()):
+        logits, _ = model.decode_step(tokens, t, cache, src)
+        lp = torch.log_softmax(logits.float(), dim=-1).reshape(batch, beam, V)
+        pad_row = torch.full((V,), NEG_INF, device=dev)
+        pad_row[0] = 0.0
+        total = scores[..., None] + torch.where(finished[..., None], pad_row, lp)
+        top_s, top_i, _ = fd.fused_decode_step(
+            packed, fcache, emb[tokens] + pe[t], src_t, t, scores.reshape(bk, 1),
+            finished.reshape(bk, 1).float(), num_layers=NL, beam=beam, num_heads=H,
+            topk=beam, activation=model.activation)
+        rows = total.reshape(bk, V)
+        err = max(err, close(f"fused vs non-fused step {t}", top_s,
+                             rows.gather(1, top_i.long()), atol=1e-3))
+        want_s, want_i = _top(rows, beam + 1)
+        compared += ids_agree(f"fused vs non-fused ids, step {t}", top_i, want_s, want_i,
+                              NEAR_TIE)
+        scores, flat = _top(total.reshape(batch, beam * V), beam)
+        beam_idx, new_tokens = flat // V, flat % V
+        parents = (group_base + beam_idx).reshape(-1)
+        src, src_t = src[parents], src_t[:, parents]
+        src[:, t + 1], src_t[t + 1] = own_rows, own_local
+        finished = finished.gather(1, beam_idx) | (new_tokens == pipe.end_token)
+        tokens = new_tokens.reshape(-1)
+        t += 1
+    return dict(score_max_abs_err=err, ids_compared=compared, ids_total=t * bk * beam, steps=t)
+
+
+def phase_decode_modes(fd, torch, pipe, fused, scaled32, scaled16):
+    """The non-fused decode modes at full width. ``pipe`` (bf16) and
+    ``fused`` (its fused-backbone twin) carry the main path's seeded
+    weights; ``scaled32``/``scaled16`` the evaluate phase's
+    (``eval_variables``, peaked logits, so greedy choices are clear of near
+    ties). (a) the fused and the non-fused fast beam search (beam 8, batch 8
+    and 64) in lock step in float32 (``routes_in_lockstep``); free running,
+    float32 sequences equal wherever the non-fused search's deciding gaps
+    (``with_margins``) stay above ``NEAR_TIE`` (the count printed), and bf16
+    through ``use_pallas=False``. (b) parity mode at batch 8: the three
+    crafted ties of tests/test_decode.py give their pinned outputs exactly,
+    and parity equals greedy on items clear of a near tie, in both dtypes.
+    (c) ``sample_batch`` at batch 64, bf16: a seed twice gives the same
+    captions, temperature 0 greedy's on clear items, mixed per-row settings
+    with ``top_k=5`` run. (d) the decode kernels launch 0 times in (a)'s
+    free-running and (b)-(c)'s runs; one fused-backbone sampling run
+    launches ``fused_ir_block`` 17 times. (e) the server in
+    ``decode="sample"``. (f) ``predict_with_attention``. (g) times (the main
+    path's weights), in turns where two routes are compared. Returns the
+    launches of the phase's counted runs, summed."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch import serve
+    from fpn_mt_image_captioning_torch.decode.beam_search import beam_search
+
+    rng = np.random.default_rng(1414)
+    images = {b: rng.integers(0, 256, (b, SIZE, SIZE, 3), dtype=np.uint8) for b in (8, 64)}
+    end = pipe.end_token
+
+    # (a) the non-fused fast beam search against the fused route
+    kw = dict(beam_n=BEAM, max_len=MAX_LEN, start_token=pipe.start_token, end_token=end)
+    lockstep, free = {}, {}
+    for b in (8, 64):
+        enc = scaled32.encode(images[b])
+        lockstep[b] = routes_in_lockstep(fd, torch, scaled32, enc, BEAM)
+        reset_all_counts()
+        (s_nf, l_nf, _), margin = with_margins(
+            torch, lambda: beam_search(scaled32.transformer, enc, **kw))
+        s16, l16 = routed(scaled16, use_pallas=False).predict_batch(images[b])
+        if any(k.launches for k in fd.KERNELS):
+            raise SmokeFailure(f"the non-fused beam search launched {read_all_counts()}")
+        s_f, l_f, _ = beam_search(scaled32.transformer, enc, fused=True, packed=scaled32.packed,
+                                  **kw)
+        s_nf, l_nf, s_f, l_f = (x.cpu().numpy() for x in (s_nf, l_nf, s_f, l_f))
+        seqs_in_range(f"non-fused float32 batch {b}", s_nf, l_nf, b)
+        seqs_in_range(f"non-fused bf16 batch {b}", s16, l16, b)
+        clear = margin > NEAR_TIE
+        bad = clear & ((s_nf != s_f).any(1) | (l_nf != l_f))
+        if bad.any():
+            raise SmokeFailure(f"non-fused vs fused float32, batch {b}: {int(bad.sum())} items "
+                               "clear of a near tie differ")
+        s16f, l16f = scaled16.predict_batch(images[b])
+        free[b] = dict(float32_items_clear=int(clear.sum()),
+                       float32_items_equal=int(((s_nf == s_f).all(1) & (l_nf == l_f)).sum()),
+                       float32_min_margin=float(margin.min()),
+                       bf16_items_equal=int(((s16 == s16f).all(1) & (l16 == l16f)).sum()))
+        say(f"decode_modes_nonfused_batch{b}", lockstep_float32=lockstep[b],
+            free_running=free[b], items=b, caption0=scaled16.to_caption(s16[0], l16[0])[:60])
+    if not all(v["ids_compared"] for v in lockstep.values()):
+        raise SmokeFailure(f"non-fused vs fused: no id clear of a near tie to compare {lockstep}")
+
+    # (b) parity mode: the crafted ties, then parity against greedy
+    tok, tok2 = [t for t in range(5, 8) if t != end][:2]
+    ties = {"all_way": ({}, MAX_LEN, 0), "two_way": ({tok: 1.0, tok2: 1.0}, MAX_LEN, tok),
+            "end_tie": ({end: 1.0, tok: 1.0}, 0, 0)}
+    parity_checked = {}
+    reset_all_counts()
+    for name, p in (("float32", scaled32), ("bfloat16", scaled16)):
+        par = routed(p, beam_parity_mode=True)
+        final = p.transformer.final_layer
+        saved = final.weight.detach().clone(), final.bias.detach().clone()
+        try:
+            for case, (bias, length, token) in ties.items():
+                with torch.no_grad():
+                    final.weight.zero_()
+                    final.bias.zero_()
+                    for t, val in bias.items():
+                        final.bias[t] = val
+                s, l = par.predict_batch(images[8])
+                if not ((l == length).all() and (s == token).all()):
+                    raise SmokeFailure(f"parity {name}, crafted {case}: lengths {l.tolist()}, "
+                                       f"tokens {np.unique(s).tolist()}; want {length}, {token}")
+        finally:
+            with torch.no_grad():
+                final.weight.copy_(saved[0])
+                final.bias.copy_(saved[1])
+        s_par, l_par = par.predict_batch(images[8])
+        seqs_in_range(f"parity {name}", s_par, l_par, 8)
+        (s_g, l_g), margin = with_margins(torch, lambda: greedy_of(p, images[8]))
+        clear = margin > NEAR_TIE
+        bad = clear & ((s_par != s_g).any(1) | (l_par != l_g))
+        if bad.any():
+            raise SmokeFailure(f"parity {name}: {int(bad.sum())} items clear of a near tie "
+                               "differ from greedy")
+        parity_checked[name] = int(clear.sum())
+    if not parity_checked["float32"]:
+        raise SmokeFailure("parity: no float32 item clear of a near tie to check")
+    say("decode_modes_parity", crafted_ties_exact=sorted(ties), batch=8, beam=BEAM,
+        items_equal_to_greedy=parity_checked)
+
+    # (c) sampling at batch 64, bf16
+    x = images[64]
+    a = scaled16.sample_batch(x, seed=5, temperature=1.0)
+    b = scaled16.sample_batch(x, seed=5, temperature=1.0)
+    if not all((u == w).all() for u, w in zip(a, b)):
+        raise SmokeFailure("sample_batch: the same seed gave other captions")
+    seqs_in_range("sample_batch", *a, 64)
+    zero = scaled16.sample_batch(x, seed=6, temperature=0.0)
+    (s_g, l_g), margin = with_margins(torch, lambda: greedy_of(scaled16, x))
+    clear = margin > NEAR_TIE
+    bad = clear & ((zero[0] != s_g).any(1) | (zero[1] != l_g))
+    if bad.any():
+        raise SmokeFailure(f"sample_batch at temperature 0: {int(bad.sum())} clear items differ "
+                           "from greedy")
+    temps = np.resize(np.asarray([0.0, 0.5, 1.0, 2.0], np.float32), 64)
+    top_p = np.resize(np.asarray([1.0, 0.9, 0.5, 0.1], np.float32), 64)
+    mixed = scaled16.sample_batch(x, seed=7, temperature=temps, top_k=5, top_p=top_p)
+    seqs_in_range("sample_batch mixed", *mixed, 64)
+    counts = read_all_counts()
+    if any(counts[k.__name__] for k in fd.KERNELS):
+        raise SmokeFailure(f"parity, greedy or sampling launched decode kernels: {counts}")
+    say("decode_modes_sampling", batch=64, same_seed_equal=True,
+        temperature0_items_equal_to_greedy=int(clear.sum()),
+        distinct_captions=len({s.tobytes() for s in a[0]}), mixed_lengths=mixed[1][:8].tolist(),
+        decode_kernel_launches=0)
+
+    # (d) sampling on the fused backbone
+    reset_all_counts()
+    fused.sample_batch(x, seed=5, temperature=1.0)
+    fused_counts = read_all_counts()
+    if fused_counts["fused_ir_block"] != N_BLOCKS or any(
+            fused_counts[k.__name__] for k in fd.KERNELS):
+        raise SmokeFailure(f"fused-backbone sampling launched {fused_counts}")
+
+    # (e) the server in decode="sample" (float32: its greedy reference
+    # decodes the same padded batch, where bf16 logits can tie exactly)
+    png = png_bytes(images[8][0])
+    srv = serve.make_server(scaled32.config, port=0, serve_batch=8, max_delay_ms=300.0,
+                            pipeline=scaled32, decode="sample", sample_seed=3)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(query):
+        req = urllib.request.Request(f"{base}/caption?{query}", method="POST", data=png)
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        queries = ["temperature=0.5", "temperature=1.5&top_p=0.9", "top_p=0.5", "temperature=1"]
+        with ThreadPoolExecutor(len(queries)) as pool:
+            replies = list(pool.map(post, queries))
+        bad_params = [post("top_p=0"), post("temperature=nan")]
+        zero_status, zero_body = post("temperature=0")      # alone: one padded batch
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.server_close()
+        thread.join(timeout=60)
+    if any(s != 200 for s, _ in replies) or [s for s, _ in bad_params] != [400, 400] \
+            or zero_status != 200:
+        raise SmokeFailure(f"sample server: {replies} {bad_params} {zero_status}")
+    pixels = serve.decode_image_bytes(png, SIZE, as_uint8=True)
+    batch = np.concatenate([pixels[None], np.zeros((7, *pixels.shape), np.uint8)])
+    (s_g, l_g), margin = with_margins(torch, lambda: greedy_of(scaled32, batch))
+    greedy_caption = scaled32.to_caption(s_g[0], l_g[0])
+    if margin[0] > NEAR_TIE and zero_body["caption"] != greedy_caption:
+        raise SmokeFailure(f"sample server at temperature 0: {zero_body['caption']!r}, greedy "
+                           f"{greedy_caption!r}")
+    say("decode_modes_server", requests=len(queries), all_200=True, bad_params_400=True,
+        temperature0_equal_to_greedy=bool(margin[0] > NEAR_TIE),
+        greedy_margin=float(margin[0]), errors=[b["error"] for _, b in bad_params])
+
+    # (f) the attention read-out (the fused route captions), float32: a bf16
+    # weight keeps 8 bits, so a row of 16 sums within ~2e-3 of 1 only
+    img = images[8][1]
+    reset_all_counts()
+    seq, att = scaled32.predict_with_attention(img)
+    steps = fd.decoder_logsoftmax_topk.launches
+    check_decode_counts(fd, decode_per_step(fd), steps)
+    att_counts = read_all_counts()
+    s1, l1 = scaled32.predict_batch(img[None])
+    if not np.array_equal(seq, s1[0][: l1[0]]):
+        raise SmokeFailure("predict_with_attention: its sequence differs from predict_batch's")
+    n = min(len(seq) + 1, MAX_LEN)
+    want = {f"decoder_layer{i}_block{j}": (1, H, n, n if j == 1 else LENC)
+            for i in range(1, NL + 1) for j in (1, 2)}
+    if {k: v.shape for k, v in att.items()} != want:
+        raise SmokeFailure(f"predict_with_attention: shapes {[v.shape for v in att.values()]}")
+    row_err = max(float(np.abs(v.sum(-1) - 1).max()) for v in att.values())
+    if row_err > 1e-3 or not all(np.isfinite(v).all() for v in att.values()):
+        raise SmokeFailure(f"predict_with_attention: a row sums {row_err} from 1")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        plot = "not written: matplotlib is not installed"
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "attention.png"
+            tokens = [pipe.start_token, *seq]
+            scaled32.plot_attention_weights(att, tokens, tokens, f"decoder_layer{NL}_block1", str(path))
+            plot = f"written, {path.stat().st_size} bytes"
+    say("decode_modes_attention", length=int(len(seq)), keys=len(att), row_sum_max_err=row_err,
+        decode_steps=steps, plot=plot)
+
+    # (g) times: the non-fused route against the fused one in turns, parity,
+    # sampling with and without the nucleus
+    nonfused, parity = routed(pipe, use_pallas=False), routed(pipe, beam_parity_mode=True)
+    times = {}
+    for b in (8, 64):
+        turns = {"non_fused": [], "fused": []}
+        for _ in range(3):
+            for name, p in (("non_fused", nonfused), ("fused", pipe), ("fused", pipe),
+                            ("non_fused", nonfused)):
+                turns[name].append(timed(torch, lambda: p.predict_batch(images[b])))
+        times[f"batch{b}"] = {k: dict(images_per_s=b / statistics.median(v), runs_s=v)
+                              for k, v in turns.items()}
+    runs = [timed(torch, lambda: parity.predict_batch(images[8])) for _ in range(3)]
+    times["parity_batch8"] = dict(images_per_s=8 / statistics.median(runs), runs_s=runs)
+    for name, kw in (("sample_batch64", {}), ("sample_batch64_top_p", {"top_p": 0.9})):
+        runs = [timed(torch, lambda: pipe.sample_batch(x, seed=1, **kw)) for _ in range(3)]
+        times[name] = dict(images_per_s=64 / statistics.median(runs), runs_s=runs)
+    say("decode_modes_times", card=card_line(), bf16=True, beam=BEAM, **times)
+    return {k: fused_counts[k] + att_counts[k] for k in att_counts}
+
+
+def greedy_of(pipe, images):
+    """``greedy_decode`` of ``images`` on ``pipe``'s weights, as numpy."""
+    from fpn_mt_image_captioning_torch.decode.beam_search import greedy_decode
+
+    seqs, lengths = greedy_decode(
+        pipe.transformer, pipe.encode(images), max_len=MAX_LEN,
+        start_token=pipe.start_token, end_token=pipe.end_token)
+    return seqs.cpu().numpy(), lengths.cpu().numpy()
+
+
 def main() -> int:
     try:
         import torch
@@ -1734,13 +2117,18 @@ def main() -> int:
     counts["fused_ir_block"] = phase_fused_main(
         fd, fb, torch, fused, pipe, eager64)["fused_ir_block"]
     phase_evaluate_kernels(fd, torch, dev, pipe)
-    del pipe
+    variables = eval_variables(Config, Pipeline, tokenizer)
+    scaled = [Pipeline(tokenizer, MAX_LEN, Config(beam_search_n=BEAM, compute_dtype=dt,
+                                                  decode_batch=B), variables, device=dev)
+              for dt in ("float32", "bfloat16")]
+    modes_counts = phase_decode_modes(fd, torch, pipe, fused, *scaled)
+    del pipe, scaled
     with tempfile.TemporaryDirectory() as workdir:
         offline, img_dir = phase_cli(fd, torch, fused, workdir)
         phase_server(torch, fused, offline, img_dir)
         del fused
         eval_counts, fused_eval_counts = phase_evaluate(
-            fd, dev, Config, Pipeline, tokenizer, workdir)
+            fd, dev, Config, Pipeline, tokenizer, variables, workdir)
     eval_counts["fused_ir_block"] = fused_eval_counts["fused_ir_block"]
 
     counts.update(probe_counts)
@@ -1759,7 +2147,8 @@ def main() -> int:
         kernels.append({"name": k.__name__, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": counts[k.__name__], **row,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "evaluate_launches": eval_counts[k.__name__]})
+                        "evaluate_launches": eval_counts[k.__name__],
+                        "decode_modes_launches": modes_counts[k.__name__]})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -2,7 +2,9 @@
 ``fpn_mt_image_captioning_tpu/models/attention.py``).
 
 Arguments come in (q, k, v) order; softmax runs in float32 whatever the
-compute dtype. The decode-time attention lives in ``ops/fused_decoder.py``.
+compute dtype. ``MultiHeadAttention`` also has the KV-cache interface of the
+non-fused decode step (``project_kv`` + ``attend_cached``); the fused decode
+step's attention lives in ``ops/fused_decoder.py``.
 """
 
 from __future__ import annotations
@@ -97,3 +99,29 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, x: torch.Tensor):
         """Keys/values projected once, (B, L, H, D) each."""
         return self._split(self.wk(x)), self._split(self.wv(x))
+
+    def attend_cached(
+        self,
+        q: torch.Tensor,        # (B, 1, d) — one decode position
+        k_cache: torch.Tensor,  # (B, Lmax, H, D)
+        v_cache: torch.Tensor,  # (B, Lmax, H, D)
+        mask: Optional[torch.Tensor] = None,  # broadcastable to (B, Lmax, 1); 1.0 = disallow
+        src: Optional[torch.Tensor] = None,   # (B, Lmax) — beam-ancestry rows
+    ) -> torch.Tensor:
+        """Single-position attention over a cache. With ``src``, row ``b``
+        reads position ``l`` from cache row ``src[b, l]`` (a global row), so
+        a beam reorder never rewrites the cache. Logits and softmax run in
+        float32, the weights come back in the compute dtype."""
+        b, lmax = q.shape[0], k_cache.shape[1]
+        qh = self._split(self.wq(q))[:, 0]                          # (B, H, D)
+        if src is not None:
+            pos = torch.arange(lmax, device=src.device)[None, :]
+            k_cache, v_cache = k_cache[src, pos], v_cache[src, pos]
+        # the scale rounded to the compute dtype first, as the JAX module has it
+        scale = float(torch.tensor(1.0 / math.sqrt(self.depth), dtype=qh.dtype))
+        logits = torch.einsum("bhd,blhd->blh", qh, k_cache).float() * scale
+        if mask is not None:
+            logits = logits + mask * NEG_INF_SCALE
+        weights = torch.softmax(logits, dim=1).to(qh.dtype)         # (B, Lmax, H)
+        ctx = torch.einsum("blh,blhd->bhd", weights, v_cache)
+        return self.out(ctx.reshape(b, 1, self.d_model))

@@ -9,8 +9,10 @@
     layers update only the baseline slot. Output (B, 16, d_model) at 512².
   * ``Decoder`` — post-LN transformer decoder with an *unscaled* embedding
     (the reference comments out the sqrt(d_model) factor) and LayerNorm
-    epsilon 1e-6. Its teacher-forced ``forward`` serves the tests; decoding
-    runs through ``ops/fused_decoder.py``.
+    epsilon 1e-6. Its teacher-forced ``forward`` gives the attention
+    read-out; ``init_cache``/``decode_step`` are the non-fused KV-cached
+    step (parity-mode and greedy beam search, sampling); the fast beam
+    search runs ``ops/fused_decoder.py``.
 
 Module and parameter names mirror the Flax tree (``weights.from_flax``).
 Dropout is omitted: nothing here trains yet.
@@ -126,6 +128,20 @@ class DecoderLayer(nn.Module):
         out2 = self.layernorm2(attn2 + out1)
         return self.layernorm3(self.ffn(out2) + out2), w1, w2
 
+    def decode_step(self, x_t, pos: int, k_self, v_self, k_cross, v_cross, src=None):
+        """One position: writes the new K/V row at ``pos`` (in place; the
+        caches are returned), masks the slots after ``pos``, then
+        self-attention through the ancestry ``src``, cross-attention and the
+        FFN, each post-LN. ``x_t`` (B, 1, d); caches (B, L, H, D)."""
+        k_t, v_t = self.mha1.project_kv(x_t)
+        k_self[:, pos], v_self[:, pos] = k_t[:, 0], v_t[:, 0]
+        idx = torch.arange(k_self.shape[1], device=x_t.device)
+        self_mask = (idx > pos).float()[None, :, None]
+        out1 = self.layernorm1(
+            self.mha1.attend_cached(x_t, k_self, v_self, mask=self_mask, src=src) + x_t)
+        out2 = self.layernorm2(self.mha2.attend_cached(out1, k_cross, v_cross) + out1)
+        return self.layernorm3(self.ffn(out2) + out2), k_self, v_self
+
 
 class Decoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dff: int,
@@ -153,11 +169,38 @@ class Decoder(nn.Module):
             attention_weights[f"decoder_layer{i + 1}_block2"] = w2
         return h, attention_weights
 
+    def init_cache(self, enc_output: torch.Tensor, max_len: int) -> list[dict]:
+        """Per layer: zero self-attention K/V of length ``max_len`` and the
+        cross-attention K/V projected once from ``enc_output``, all in its
+        dtype."""
+        b = enc_output.shape[0]
+        cache = []
+        for i in range(self.num_layers):
+            layer = getattr(self, f"layer_{i}")
+            k_cross, v_cross = layer.mha2.project_kv(enc_output)
+            shape = (b, max_len, layer.mha1.num_heads, layer.mha1.depth)
+            cache.append({"k_self": enc_output.new_zeros(shape),
+                          "v_self": enc_output.new_zeros(shape),
+                          "k_cross": k_cross, "v_cross": v_cross})
+        return cache
+
+    def decode_step(self, tokens: torch.Tensor, pos: int, cache: list[dict], src=None):
+        """(B,) token ids at position ``pos`` → the (B, d) hidden state; the
+        self caches are written in place and returned in ``cache``."""
+        h = self.embedding(tokens)[:, None, :]
+        pe = torch.as_tensor(self.pos_encoding[pos], device=h.device)
+        h = h + pe.to(h.dtype)
+        for i, c in enumerate(cache):
+            h, c["k_self"], c["v_self"] = getattr(self, f"layer_{i}").decode_step(
+                h, pos, c["k_self"], c["v_self"], c["k_cross"], c["v_cross"], src)
+        return h[:, 0], cache
+
 
 class Transformer(nn.Module):
     """Top-level seq2seq model. ``encode`` serves the captioning path;
     ``forward`` is the teacher-forced decoder over a precomputed encoder
-    output (the reference's inference calling contract)."""
+    output (the reference's inference calling contract); ``init_cache`` and
+    ``decode_step`` the non-fused KV-cached decode."""
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dff: int,
                  input_vocab_size: int, target_vocab_size: int, max_position: int = 0,
@@ -188,3 +231,11 @@ class Transformer(nn.Module):
                 look_ahead_mask: Optional[torch.Tensor] = None):
         dec_output, attention_weights = self.decoder(tar, enc_output, look_ahead_mask)
         return self.final_layer(dec_output).float(), attention_weights
+
+    def init_cache(self, enc_output: torch.Tensor, max_len: int) -> list[dict]:
+        return self.decoder.init_cache(enc_output, max_len)
+
+    def decode_step(self, tokens: torch.Tensor, pos: int, cache: list[dict], src=None):
+        """Float32 (B, V) logits of the next token, and the cache."""
+        h, cache = self.decoder.decode_step(tokens, pos, cache, src)
+        return self.final_layer(h).float(), cache

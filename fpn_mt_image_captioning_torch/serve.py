@@ -1,7 +1,7 @@
 """HTTP captioning server with dynamic batching (port of the repository's root
 ``serve.py``): a standard-library HTTP server that coalesces concurrent
-single-image requests into fixed-size ``Pipeline.predict_batch`` calls on the
-CUDA card.
+single-image requests into fixed-size ``Pipeline.predict_batch`` calls (or,
+with ``decode="sample"``, ``Pipeline.sample_batch`` calls) on the CUDA card.
 
   * Fixed batch: every device batch is padded to ``serve_batch`` (default
     ``Config.decode_batch``), so each call has the shape the warm-up ran.
@@ -12,7 +12,12 @@ CUDA card.
 
 Endpoints:
   POST /caption        image bytes (PNG, JPEG, anything PIL reads) in the
-                       body → {"caption": str, "tokens": int, "latency_ms"}
+                       body → {"caption": str, "tokens": int, "latency_ms"}.
+                       Under --decode=sample, optional ?temperature=&top_p=
+                       query parameters apply per request (per-row inputs of
+                       one batch); a finite temperature >= 0 and
+                       0 < top_p <= 1, else 400; on a beam server they are a
+                       400
   GET  /healthz        liveness and model/config info
   GET  /stats          request/batch counters, batch fill, device-batch times
   POST /stats/reset    zero the counters and the timing window
@@ -24,19 +29,20 @@ body is a 400, an unknown path a 404.
     python -m fpn_mt_image_captioning_torch.serve [--port=8500]
         [--serve_batch=64] [--max_delay_ms=10] [--max_queue=N]
         [--request_timeout_s=1800] [--beam_search_n=8] [--fused_backbone=true]
-        [any Config --key=value]
+        [--decode=beam|sample] [--sample_seed=N] [any Config --key=value]
 
 The weights are those of ``Pipeline.from_config``: the Flax msgpack file
 ``--transformer_weight_path`` where it exists, else the seeded init (or a
-refusal where an Orbax checkpoint exists). Sampling (``--decode=sample``) and
-serving a compiled export
-(``--artifact``) are not ported yet and raise.
+refusal where an Orbax checkpoint exists). A sampling batch is seeded with
+``sample_seed`` + the batch's sequence number. Serving a compiled export
+(``--artifact``) is not ported yet and raises.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import math
 import signal
 import sys
 import threading
@@ -70,22 +76,26 @@ class QueueFull(RuntimeError):
 
 class DynamicBatcher:
     """Coalesces submitted images into fixed-size ``predict_batch`` calls on a
-    dedicated thread; callers get a Future of ``(caption, tokens)``."""
+    dedicated thread; callers get a Future of ``(caption, tokens)``. With
+    ``decode="sample"`` the call is ``sample_batch``, each row with its
+    request's temperature and top_p."""
 
     def __init__(self, pipeline: Pipeline, batch: int, max_delay_ms: float,
-                 max_queue: int | None = None):
+                 decode: str = "beam", sample_seed: int = 0, max_queue: int | None = None):
         self.pipeline = pipeline
         self.batch = batch
         self.max_delay_s = max_delay_ms / 1000.0
-        self.decode = "beam"
+        self.decode = decode
+        self.sample_seed = sample_seed
         # backpressure: beyond this many queued images submit() raises
         self.max_queue = 8 * batch if max_queue is None else max_queue
-        self._queue: list[tuple[np.ndarray, Future]] = []
+        self._queue: list[tuple[np.ndarray, float, float, Future]] = []
         self._lock = threading.Condition()
         self._closed = False
         self.stats = {"requests": 0, "batches": 0, "images_padded": 0, "errors": 0,
                       "rejected": 0}
         self.timer = StepTimer(window=512)   # wall time per device batch
+        self._batch_seq = 0   # the sampling seed's counter; reset_stats keeps it
         # bumped by reset_stats: a batch in flight across a reset must not
         # count into the freshly zeroed window
         self._stats_gen = 0
@@ -93,7 +103,9 @@ class DynamicBatcher:
         self._thread.start()
 
     def reset_stats(self) -> None:
-        """Zero the counters and the timing window (POST /stats/reset)."""
+        """Zero the counters and the timing window (POST /stats/reset). The
+        sampling seed's sequence goes on: a replayed seed would replay
+        captions."""
         with self._lock:
             for k in self.stats:
                 self.stats[k] = 0
@@ -104,7 +116,7 @@ class DynamicBatcher:
         with self._lock:
             return len(self._queue)
 
-    def submit(self, img: np.ndarray) -> Future:
+    def submit(self, img: np.ndarray, temperature: float = 1.0, top_p: float = 1.0) -> Future:
         fut: Future = Future()
         with self._lock:
             if self._closed:
@@ -113,7 +125,7 @@ class DynamicBatcher:
                 self.stats["rejected"] += 1
                 raise QueueFull(f"{len(self._queue)} images already queued "
                                 f"(max_queue={self.max_queue}); retry later")
-            self._queue.append((img, fut))
+            self._queue.append((img, temperature, top_p, fut))
             self.stats["requests"] += 1
             self._lock.notify()
         return fut
@@ -147,22 +159,36 @@ class DynamicBatcher:
             try:
                 # batch assembly inside the try: a failure here must fail
                 # these futures, not kill the only batcher thread
-                imgs = np.stack([im for im, _ in items])
+                imgs = np.stack([im for im, *_ in items])
                 if pad:
                     imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]), imgs.dtype)])
                 timer.start()
-                seqs, lengths = self.pipeline.predict_batch(imgs)
+                if self.decode == "sample":
+                    temps = np.ones(self.batch, np.float32)
+                    tps = np.ones(self.batch, np.float32)
+                    for i, (_, temp, tp, _) in enumerate(items):
+                        temps[i], tps[i] = temp, tp
+                    seqs, lengths = self.pipeline.sample_batch(
+                        imgs, temperature=temps,
+                        # no nucleus (and no per-step sort) where no row asks for it
+                        top_p=None if (tps >= 1.0).all() else tps,
+                        # a seed a batch: identical requests in two batches differ,
+                        # and a server replays its own sequence
+                        seed=self.sample_seed + self._batch_seq)
+                else:
+                    seqs, lengths = self.pipeline.predict_batch(imgs)
                 timer.stop()
-                for i, (_, fut) in enumerate(items):
+                for i, (*_, fut) in enumerate(items):
                     if not fut.done():   # close() may have failed it already
                         fut.set_result((self.pipeline.to_caption(seqs[i], lengths[i]),
                                         int(lengths[i])))
             except BaseException as e:  # noqa: BLE001 - every caller must unblock
                 failed = True
-                for _, fut in items:
+                for *_, fut in items:
                     if not fut.done():
                         fut.set_exception(e)
             with self._lock:
+                self._batch_seq += 1
                 if gen == self._stats_gen:
                     self.stats["batches"] += 1
                     self.stats["images_padded"] += pad
@@ -176,7 +202,7 @@ class DynamicBatcher:
         self._thread.join(timeout=30)
         with self._lock:
             leftovers, self._queue = self._queue, []
-        for _, fut in leftovers:
+        for *_, fut in leftovers:
             if not fut.done():
                 fut.set_exception(RuntimeError("server shutting down"))
 
@@ -189,12 +215,13 @@ class CaptionServer(ThreadingHTTPServer):
 
     def __init__(self, addr, pipeline: Pipeline, cfg: Config, batch: int,
                  max_delay_ms: float, request_timeout_s: float = 600.0,
-                 max_queue: int | None = None):
+                 decode: str = "beam", sample_seed: int = 0, max_queue: int | None = None):
         self.pipeline = pipeline
         self.cfg = cfg
         # the pipeline normalizes uint8 on the card (4× smaller transfer)
         self.input_uint8 = bool(getattr(pipeline, "accepts_uint8", False))
-        self.batcher = DynamicBatcher(pipeline, batch, max_delay_ms, max_queue=max_queue)
+        self.batcher = DynamicBatcher(pipeline, batch, max_delay_ms, decode=decode,
+                                      sample_seed=sample_seed, max_queue=max_queue)
         self.request_timeout_s = request_timeout_s
         super().__init__(addr, _Handler)
 
@@ -265,10 +292,24 @@ class _Handler(BaseHTTPRequestHandler):
             return
         srv = self.server
         query = parse_qs(parts.query)
-        if "temperature" in query or "top_p" in query:
+
+        def reject(msg):
             drain()
-            self._reply(400, {"error": "sampling params need --decode=sample, which is not "
-                                       "ported yet (this server decodes beam search)"})
+            self._reply(400, {"error": msg})
+
+        try:
+            temperature = float(query.get("temperature", ["1.0"])[0])
+            top_p = float(query.get("top_p", ["1.0"])[0])
+            # NaN passes plain comparisons (nan < 0 is False) and would poison
+            # its row's logits: finite is required explicitly
+            if not math.isfinite(temperature) or temperature < 0 or not (0 < top_p <= 1):
+                raise ValueError("finite temperature >= 0 and 0 < top_p <= 1 required")
+        except ValueError as e:
+            reject(f"bad sampling params: {e}")
+            return
+        if srv.batcher.decode != "sample" and ("temperature" in query or "top_p" in query):
+            reject("sampling params require the server to run with --decode=sample "
+                   "(this one decodes beam search)")
             return
         try:
             if not length:
@@ -281,7 +322,8 @@ class _Handler(BaseHTTPRequestHandler):
             return
         try:
             t0 = time.perf_counter()
-            caption, ntok = srv.batcher.submit(img).result(timeout=srv.request_timeout_s)
+            caption, ntok = srv.batcher.submit(img, temperature, top_p).result(
+                timeout=srv.request_timeout_s)
             self._reply(200, {"caption": caption, "tokens": ntok,
                               "latency_ms": round((time.perf_counter() - t0) * 1000, 1)})
         except QueueFull as e:
@@ -296,25 +338,25 @@ class _Handler(BaseHTTPRequestHandler):
 def make_server(cfg: Config, host: str = "127.0.0.1", port: int = 8500,
                 serve_batch: int | None = None, max_delay_ms: float = 10.0,
                 pipeline: Pipeline | None = None, decode: str = "beam",
-                max_queue: int | None = None,
+                sample_seed: int = 0, max_queue: int | None = None,
                 request_timeout_s: float = 600.0) -> CaptionServer:
     """Build (but do not run) the server; tests use ``port=0`` and
     ``serve_forever`` in a thread. ``pipeline=None`` builds
-    ``Pipeline.from_config(cfg)`` on the card."""
-    if decode == "sample":
-        raise NotImplementedError("decode='sample': sampling is not ported yet")
-    if decode != "beam":
+    ``Pipeline.from_config(cfg)`` on the card. ``decode="sample"`` serves
+    sampled captions (per-request ``?temperature=&top_p=``)."""
+    if decode not in ("beam", "sample"):
         raise ValueError(f"decode must be 'beam' or 'sample', got {decode!r}")
     if pipeline is None:
         pipeline = Pipeline.from_config(cfg)
     batch = serve_batch or max(cfg.decode_batch, 1)
     return CaptionServer((host, port), pipeline, cfg, batch, max_delay_ms,
-                         request_timeout_s=request_timeout_s, max_queue=max_queue)
+                         request_timeout_s=request_timeout_s, decode=decode,
+                         sample_seed=sample_seed, max_queue=max_queue)
 
 
 def main(argv: list[str]) -> None:
     host, port, serve_batch, max_delay_ms = "0.0.0.0", 8500, None, 10.0
-    decode, max_queue, request_timeout_s = "beam", None, 1800.0
+    decode, sample_seed, max_queue, request_timeout_s = "beam", 0, None, 1800.0
     passthrough = []
     for arg in argv:
         key, _, val = arg.partition("=")
@@ -332,26 +374,33 @@ def main(argv: list[str]) -> None:
             max_delay_ms = float(val)
         elif key == "--decode":
             decode = val
+        elif key == "--sample_seed":
+            sample_seed = int(val)
         elif key == "--artifact":
             raise NotImplementedError("--artifact: serving a compiled export is not ported yet")
         else:
             passthrough.append(arg)
     cfg = Config.from_flags(passthrough)
     server = make_server(cfg, host, port, serve_batch, max_delay_ms, decode=decode,
-                         max_queue=max_queue, request_timeout_s=request_timeout_s)
+                         sample_seed=sample_seed, max_queue=max_queue,
+                         request_timeout_s=request_timeout_s)
 
     # warm-up before accepting traffic: kernel builds and cuDNN plans
     warm = np.zeros((server.batcher.batch, cfg.image_input_size, cfg.image_input_size, 3),
                     np.uint8 if server.input_uint8 else np.float32)
     t0 = time.perf_counter()
-    server.pipeline.predict_batch(warm)
+    if decode == "sample":   # both sampling routes: without and with the nucleus
+        server.pipeline.sample_batch(warm)
+        server.pipeline.sample_batch(warm, top_p=np.full(warm.shape[0], 0.9, np.float32))
+    else:
+        server.pipeline.predict_batch(warm)
     print(f"warm-up done in {time.perf_counter() - t0:.1f}s")
 
     # SIGTERM: finish in-flight batches, refuse new work, release the card
     signal.signal(signal.SIGTERM,
                   lambda *_: threading.Thread(target=server.shutdown, daemon=True).start())
     print(f"serving on http://{host}:{port}  (batch={server.batcher.batch}, "
-          f"beam={cfg.beam_search_n}, delay={max_delay_ms}ms)")
+          f"decode={decode}, beam={cfg.beam_search_n}, delay={max_delay_ms}ms)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

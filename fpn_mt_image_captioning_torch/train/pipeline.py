@@ -1,10 +1,16 @@
 """Pipeline — the captioning surface of the port (inference side of
 ``fpn_mt_image_captioning_tpu/train/pipeline.py``).
 
-``predict_batch`` encodes a batch of images and runs the batched beam search
-on the fused decode step; ``to_caption`` detokenizes; ``evaluate`` captions a
-validation split and ``metric_eval`` scores the result file (BLEU-1..4,
-METEOR, ROUGE-L, CIDEr-D). With ``Config.fused_backbone`` (and
+``predict_batch`` encodes a batch of images and runs the batched beam search:
+on the fused decode step (the hand-written kernels) by default, on the
+non-fused KV-cached step (plain PyTorch) with ``Config.beam_parity_mode``
+(the reference's tied-beam quirks) or ``use_pallas=False``, as the JAX
+package routes them. ``sample_batch`` samples captions (temperature, top-k,
+nucleus) on the non-fused step; ``predict_with_attention`` re-forwards a
+caption teacher-forced for its attention weights, which
+``plot_attention_weights`` draws. ``to_caption`` detokenizes; ``evaluate``
+captions a validation split and ``metric_eval`` scores the result file
+(BLEU-1..4, METEOR, ROUGE-L, CIDEr-D). With ``Config.fused_backbone`` (and
 ``use_pallas``) the encode runs the MobileNetV2 backbone as fused
 inverted-residual kernels (``ops/fused_backbone.py``); a fault there raises,
 it never falls back to the eager encode. Orbax checkpoint restore, training
@@ -25,6 +31,7 @@ PyTorch versions of the kernels).
 from __future__ import annotations
 
 import functools
+import math
 import os
 from collections.abc import Mapping
 
@@ -35,7 +42,8 @@ from ..config import Config
 from ..data.dataset import load_max_seq_len
 from ..data.metrics import MetricEval
 from ..data.tokenizer import Tokenizer, load_tokenizer_from_path
-from ..decode.beam_search import beam_search, cast_for_inference
+from ..decode.beam_search import beam_search, cast_for_inference, sample_decode
+from ..models.positional import create_masks
 from ..models.transformer import Transformer
 from ..ops.fused_backbone import (fused_encode, pack_backbone_weights, packed_to,
                                   supports_fused_backbone)
@@ -222,16 +230,43 @@ class Pipeline:
 
     def _predict_chunk(self, images: np.ndarray, beam_n: int):
         cfg = self.config
-        if cfg.beam_parity_mode or not cfg.use_pallas:
-            raise NotImplementedError(
-                "only the fused fast-mode beam search is ported (beam_parity_mode"
-                " and use_pallas=False need the non-fused decode step)")
-        if cfg.activation not in FUSED_ACTIVATIONS:
-            raise NotImplementedError(f"activation {cfg.activation!r} has no fused kernel")
+        # the fused decode step (the hand-written kernels on the card; their
+        # plain versions on the CPU) freezes finished beams, which parity mode
+        # must not; an activation the kernels do not implement takes the
+        # non-fused step too
+        fused = (cfg.use_pallas and not cfg.beam_parity_mode
+                 and cfg.activation in FUSED_ACTIVATIONS)
         seqs, lengths, _scores = beam_search(
             self.transformer, self.encode(images),
             beam_n=beam_n, max_len=self.max_seq_len,
-            start_token=self.start_token, end_token=self.end_token, packed=self.packed,
+            start_token=self.start_token, end_token=self.end_token,
+            parity=cfg.beam_parity_mode, fused=fused, packed=self.packed,
+        )
+        return seqs.cpu().numpy(), lengths.cpu().numpy()
+
+    def sample_batch(self, images, *, seed: int = 0, temperature=1.0, top_k: int = 0,
+                     top_p=None):
+        """Stochastic captioning: ancestral sampling with temperature / top-k /
+        nucleus truncation (``decode.beam_search.sample_decode``) on the
+        non-fused step. ``temperature`` and ``top_p`` may be scalars or
+        per-image arrays; ``top_p=None`` turns the nucleus (and its per-step
+        sort) off. The noise comes from a ``torch.Generator`` on the
+        pipeline's device seeded with ``seed``: the same seed on the same
+        device gives the same captions. Returns (sequences (B, L) int32 np,
+        lengths (B,) np)."""
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            raise NotImplementedError("sample_batch over more than one process is not ported yet")
+        images = np.asarray(images)
+        n = images.shape[0]
+        temperature = np.broadcast_to(np.asarray(temperature, np.float32), (n,)).copy()
+        if top_p is not None:
+            top_p = np.broadcast_to(np.asarray(top_p, np.float32), (n,)).copy()
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        seqs, lengths = sample_decode(
+            self.transformer, self.encode(images), generator,
+            max_len=self.max_seq_len, start_token=self.start_token, end_token=self.end_token,
+            temperature=temperature, top_k=top_k, top_p=top_p,
         )
         return seqs.cpu().numpy(), lengths.cpu().numpy()
 
@@ -240,6 +275,21 @@ class Pipeline:
         del max_seq_len  # fixed at construction, kept for signature parity
         seqs, lengths = self.predict_batch(np.asarray(img)[None])
         return seqs[0][: lengths[0]]
+
+    @torch.no_grad()
+    def predict_with_attention(self, img, beam_n: int | None = None):
+        """Caption one image and recover the decoder attention weights
+        (``decoder_layer{n}_block{1,2}``, (1, H, L, L) and (1, H, L, Lenc)) by
+        teacher-forcing ``<start>`` + the caption (cut to ``max_seq_len``)
+        back through the decoder. Returns (token sequence, {name: float32
+        numpy array})."""
+        images = np.asarray(img)[None]
+        seqs, lengths = self.predict_batch(images, beam_n=beam_n)
+        seq = seqs[0][: lengths[0]]
+        tokens = np.concatenate([[self.start_token], seq])[: self.max_seq_len]
+        tar = torch.as_tensor(tokens, dtype=torch.long, device=self.device)[None, :]
+        _logits, attention = self.transformer(self.encode(images), tar, create_masks(tar))
+        return seq, {k: v.float().cpu().numpy() for k, v in attention.items()}
 
     def to_caption(self, seq_row, length) -> str:
         """Detokenize one decoded row (first ``length`` tokens) to a caption."""
@@ -278,3 +328,39 @@ class Pipeline:
         """One image's result list, ``[{"image_id": 0, "caption"}]``."""
         seqs, lengths = self.predict_batch(np.asarray(img)[None])
         return [{"image_id": 0, "caption": self.to_caption(seqs[0], lengths[0])}]
+
+    def plot_attention_weights(self, attention, input_tokens, caption_token, layer: str,
+                               filename: str, max_len: int = 10) -> None:
+        """One head a panel of ``attention[layer]``'s first ``max_len`` query
+        and key positions, written to ``filename`` (PNG). Needs matplotlib,
+        which is imported here and nowhere else."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        att = np.asarray(attention[layer])
+        if att.ndim == 4:
+            att = att[0]
+        att = att[:, :max_len, :max_len]
+        input_tokens = list(input_tokens)[:max_len]
+        caption_token = list(caption_token)[:max_len]
+
+        fig = plt.figure(figsize=(16, 8))
+        row = math.ceil(att.shape[0] ** 0.5)
+        for head in range(att.shape[0]):
+            ax = fig.add_subplot(row, row, head + 1)
+            ax.matshow(att[head][:-1, :], cmap="viridis")
+            fontdict = {"fontsize": 10}
+            ax.set_xticks(range(len(input_tokens)))
+            ax.set_yticks(range(len(caption_token)))
+            ax.set_ylim(len(caption_token) - 1.5, -0.5)
+            ax.set_xticklabels(list(map(str, input_tokens)), fontdict=fontdict, rotation=90)
+            ax.set_yticklabels(
+                [self.tokenizer.index_word.get(int(i), "?") for i in caption_token],
+                fontdict=fontdict)
+            ax.set_xlabel(f"Head {head + 1}")
+        plt.tight_layout()
+        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+        plt.savefig(filename)
+        plt.close()

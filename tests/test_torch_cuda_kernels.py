@@ -637,3 +637,38 @@ def test_evaluate_on_the_card(dev, tmp_path):
     assert steps > 0 and [k.launches for k in fd.KERNELS] == [
         steps * n for n in (6 * nl + 1, 3 * nl, nl, nl, 1)]
     assert got == cpu.evaluate(split()) and len(got) == 5
+
+
+def test_sampling_same_seed_on_the_card(dev):
+    """``Pipeline.sample_batch`` on the card: the same seed twice gives the
+    same captions (the noise comes from a generator on the card), other
+    seeds other captions at temperature 3; the non-fused step launches none
+    of the fused decode kernels, and temperature 0 gives the card's greedy
+    decode (float32: bf16 logits tie exactly often enough that the noise,
+    not the lowest index, would pick among them)."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.config import Config
+    from fpn_mt_image_captioning_torch.data.tokenizer import REFERENCE_FILTERS, Tokenizer
+    from fpn_mt_image_captioning_torch.decode.beam_search import greedy_decode
+    from fpn_mt_image_captioning_torch.train.pipeline import Pipeline
+
+    tok = Tokenizer(num_words=100, oov_token="unk", filters=REFERENCE_FILTERS)
+    tok.fit_on_texts(["<start> " + " ".join(f"w{i}" for i in range(j, j + 5)) + " <end>"
+                      for j in range(20)])
+    tok.add_padding_token()
+    cfg = Config(image_input_size=256, backbone="mobilenet224_0.35", d_model=32, num_layers=2,
+                 num_heads=4, dff=64, compute_dtype="float32")
+    pipe = Pipeline(tok, 8, cfg, seed=3, device=dev)
+    images = np.random.default_rng(0).integers(0, 256, (16, 256, 256, 3), dtype=np.uint8)
+    fd.reset_launch_counts()
+    a = pipe.sample_batch(images, seed=7, temperature=3.0, top_k=5, top_p=0.9)
+    b = pipe.sample_batch(images, seed=7, temperature=3.0, top_k=5, top_p=0.9)
+    assert all((x == y).all() for x, y in zip(a, b))
+    others = {pipe.sample_batch(images, seed=s, temperature=3.0)[0].tobytes() for s in range(3)}
+    assert len(others) > 1
+    assert [k.launches for k in fd.KERNELS] == [0] * len(fd.KERNELS)
+    zero = pipe.sample_batch(images, seed=1, temperature=0.0)
+    greedy = greedy_decode(pipe.transformer, pipe.encode(images), max_len=8,
+                           start_token=pipe.start_token, end_token=pipe.end_token)
+    assert (zero[0] == greedy[0].cpu().numpy()).all()

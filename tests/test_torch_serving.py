@@ -2,12 +2,17 @@
 server (``.../serve.py``) on the CPU: the CLI writes the same caption JSON as
 the JAX package's ``caption.main`` on the same perturbed weights (those of
 ``tests/test_torch_slice.py``), and the server answers health, single,
-burst, error and overload requests with the offline captions.
+burst, error and overload requests with the offline captions. In
+``decode="sample"`` the server answers bad sampling parameters, and
+sampling parameters sent to a beam server, with the status and error text
+of the root ``serve.py``, and a temperature-0 request with the greedy
+caption that the root server gives.
 
-The JAX side is a thin pipeline around the package's own ``encode`` and
-non-fused ``beam_search`` (``caption.main`` takes any object with
-``predict_batch`` and ``to_caption``); its PNG files are read by the JAX
-package's loader, the port's by its own, exact at the model's size."""
+The JAX side is a thin pipeline around the package's own ``encode``,
+non-fused ``beam_search`` and ``sample_decode`` (``caption.main`` and the
+root server take any object with ``predict_batch``, ``sample_batch`` and
+``to_caption``); its PNG files are read by the JAX package's loader, the
+port's by its own, exact at the model's size."""
 
 import io
 import json
@@ -22,8 +27,11 @@ import pytest
 from PIL import Image
 
 import caption as jx_caption
+import serve as jx_serve
 from fpn_mt_image_captioning_tpu.config import Config as JxConfig
 from fpn_mt_image_captioning_tpu.decode.beam_search import beam_search as jx_beam_search
+from fpn_mt_image_captioning_tpu.decode.beam_search import greedy_decode as jx_greedy
+from fpn_mt_image_captioning_tpu.decode.beam_search import sample_decode as jx_sample_decode
 from fpn_mt_image_captioning_tpu.models.transformer import Transformer as JxTransformer
 from fpn_mt_image_captioning_torch import caption as pt_caption
 from fpn_mt_image_captioning_torch import serve as pt_serve
@@ -35,8 +43,8 @@ N_FILES, BATCH = 5, 2   # three CLI batches, the last one padded
 
 
 class JaxPipe:
-    """The JAX package's encode + beam search behind ``caption.main``'s
-    pipeline interface."""
+    """The JAX package's encode + beam search (and sampling) behind the
+    pipeline interface of ``caption.main`` and the root server."""
 
     accepts_uint8 = True
 
@@ -52,6 +60,23 @@ class JaxPipe:
                                           max_len=MAX_LEN, start_token=self.start,
                                           end_token=self.end, fused=False)
         return np.asarray(seqs), np.asarray(lengths)
+
+    def sample_batch(self, images, *, seed=0, temperature=1.0, top_k=0, top_p=None):
+        enc = self.encode(self.variables, images)
+        seqs, lengths = jx_sample_decode(
+            self.jx, self.variables, enc, jax.random.PRNGKey(seed), max_len=MAX_LEN,
+            start_token=self.start, end_token=self.end, temperature=temperature,
+            top_k=top_k, top_p=top_p)
+        return np.asarray(seqs), np.asarray(lengths)
+
+    def greedy_captions(self, images):
+        enc = self.encode(self.variables, images)
+        seqs, lengths = jx_greedy(self.jx, self.variables, enc, max_len=MAX_LEN,
+                                  start_token=self.start, end_token=self.end)
+        return [self.to_caption(s, n) for s, n in zip(np.asarray(seqs), np.asarray(lengths))]
+
+    def close(self):
+        pass
 
     def to_caption(self, seq, length):
         return self.jtok.sequences_to_texts([[int(t) for t in seq[:length]]])[0]
@@ -226,7 +251,7 @@ def test_bad_requests_are_400(server):
     assert http_error(lambda: post(base, b"")).code == 400
     err = http_error(lambda: post(base, png_bytes(np.zeros((8, 8, 3), np.uint8)),
                                   path="/caption?temperature=0.5"))
-    assert err.code == 400 and "not ported" in json.loads(err.read())["error"]
+    assert err.code == 400 and "--decode=sample" in json.loads(err.read())["error"]
 
 
 def test_unknown_paths_are_404(server):
@@ -250,9 +275,97 @@ def test_queue_full_is_503(server, world):
 
 
 def test_sampling_and_artifact_raise(world):
-    with pytest.raises(NotImplementedError, match="sampling"):
-        pt_serve.make_server(CFG, port=0, pipeline=world["pipe"], decode="sample")
+    srv = pt_serve.make_server(CFG, port=0, pipeline=world["pipe"], decode="sample",
+                               sample_seed=9)
+    try:
+        assert (srv.batcher.decode, srv.batcher.sample_seed) == ("sample", 9)
+    finally:
+        srv.batcher.close()
+        srv.server_close()
     with pytest.raises(ValueError, match="decode"):
         pt_serve.make_server(CFG, port=0, pipeline=world["pipe"], decode="greedy")
     with pytest.raises(NotImplementedError, match="artifact"):
         pt_serve.main(["--artifact=dir"])
+
+
+# ---------------------------------------------------------------------------
+# decode="sample", beside the root server
+# ---------------------------------------------------------------------------
+def start(srv):
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    return thread, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def stop(srv, thread):
+    srv.shutdown()
+    srv.batcher.close()
+    srv.server_close()
+    thread.join(timeout=30)
+
+
+@pytest.fixture(scope="module")
+def servers(world):
+    """The port's and the root ``serve.py``'s servers in ``decode="sample"``,
+    and the root's in ``decode="beam"``, on the same weights."""
+    jpipe = JaxPipe(world["jx"], world["jtok"], world["variables"])
+    jcfg = JxConfig(image_input_size=SIZE, beam_search_n=BEAM)
+    made = {
+        "port": pt_serve.make_server(CFG, port=0, serve_batch=4, max_delay_ms=150.0,
+                                     pipeline=world["pipe"], decode="sample", sample_seed=5),
+        "root": jx_serve.make_server(jcfg, port=0, serve_batch=4, max_delay_ms=150.0,
+                                     pipeline=jpipe, decode="sample", sample_seed=5),
+        "root_beam": jx_serve.make_server(jcfg, port=0, serve_batch=4, max_delay_ms=150.0,
+                                          pipeline=jpipe),
+    }
+    running = {k: start(srv) for k, srv in made.items()}
+    yield {k: url for k, (_, url) in running.items()}, jpipe
+    for k, srv in made.items():
+        stop(srv, running[k][0])
+
+
+BAD_PARAMS = ["top_p=0", "temperature=nan", "temperature=-1", "top_p=1.5", "temperature=abc",
+              "top_p=inf"]
+
+
+@pytest.mark.parametrize("query", BAD_PARAMS)
+def test_sample_server_bad_params_as_root(servers, server, world, query):
+    """A bad ``temperature``/``top_p`` is a 400 with the root server's text;
+    the same parameter sent to a beam server (the port's and the root's)
+    too."""
+    urls, _ = servers
+    body = png_bytes(world["arrays"][0])
+    replies = {}
+    for name, base in [("port", urls["port"]), ("root", urls["root"])]:
+        err = http_error(lambda: post(base, body, path=f"/caption?{query}"))
+        replies[name] = (err.code, json.loads(err.read())["error"])
+    assert replies["port"] == replies["root"] and replies["port"][0] == 400
+    assert replies["port"][1].startswith("bad sampling params: ")
+    beam = {}
+    for name, base in [("port", server[1]), ("root", urls["root_beam"])]:
+        err = http_error(lambda: post(base, body, path="/caption?temperature=0.5&top_p=0.9"))
+        beam[name] = (err.code, json.loads(err.read())["error"])
+    assert beam["port"] == beam["root"] and beam["port"][0] == 400
+
+
+def test_sample_server_temperature_zero_is_greedy(servers, world):
+    """Mixed requests in one batch each get 200; the temperature-0 ones get
+    the greedy caption, the root server's for the same PNG; /healthz says
+    ``sample``."""
+    urls, jpipe = servers
+    greedy = jpipe.greedy_captions(world["arrays"][:3])
+    queries = ["temperature=0", "temperature=0&top_p=0.5", "temperature=1.5&top_p=0.9",
+               "temperature=0.7", "top_p=0.3", "temperature=0"]
+    images = [0, 1, 2, 0, 1, 2]
+    with ThreadPoolExecutor(len(queries)) as pool:
+        replies = list(pool.map(
+            lambda qi: post(urls["port"], png_bytes(world["arrays"][qi[1]]),
+                            path=f"/caption?{qi[0]}"), zip(queries, images)))
+    assert all(status == 200 for status, _ in replies)
+    for (q, i), (_, body) in zip(zip(queries, images), replies):
+        if q.startswith("temperature=0&") or q == "temperature=0":
+            assert body["caption"] == greedy[i], q
+    root = post(urls["root"], png_bytes(world["arrays"][2]), path="/caption?temperature=0")[1]
+    assert root["caption"] == greedy[2] == replies[-1][1]["caption"]
+    with urllib.request.urlopen(urls["port"] + "/healthz", timeout=60) as r:
+        assert json.loads(r.read())["decode"] == "sample"

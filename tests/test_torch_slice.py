@@ -222,7 +222,9 @@ def test_port_imports_no_jax():
     backbone, the image loader, the weight files, the metrics and the
     evaluation entry points among them) and ``chip_smoke``, in a fresh
     interpreter, loads neither JAX, Flax, the JAX package, msgpack, h5py,
-    Orbax nor tensorstore; no source names them either."""
+    Orbax nor tensorstore; no source names them either. Nor does it load
+    matplotlib, which the card's machine lacks: the plotting functions
+    import it when they run."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fpn_mt_image_captioning_torch as p\n"
@@ -232,6 +234,7 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "print(' '.join(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -243,7 +246,8 @@ def test_port_imports_no_jax():
                  "runtime.native_loader", "data.dataset", "utils.profiling", "weights",
                  "test", "evaluate", "show_results", "data.coco", "data.metrics",
                  "data.metrics.ptb", "data.metrics.bleu", "data.metrics.rouge",
-                 "data.metrics.meteor", "data.metrics.cider", "utils.porter"):
+                 "data.metrics.meteor", "data.metrics.cider", "utils.porter",
+                 "utils.figures", "decode.beam_search", "models.positional"):
         assert f"fpn_mt_image_captioning_torch.{name}" in imported, name
 
     for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
