@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the quickest proof that the
-port builds, is right, and captions on the GPU.
+port builds, is right, and captions and trains on the GPU.
 
     python3 chip_smoke.py
 
 Phases, in the order they run, except that 14 runs between the kernel
-checks that open 13 and phase 11 (each prints one line; any failure raises,
-so the script exits non-zero without its last line):
+checks that open 13 and phase 11, and 15 last (each prints one line; any
+failure raises, so the script exits non-zero without its last line):
 
   1. environment — the card (nvidia-smi name and power limit), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions, so float32
@@ -153,6 +153,7 @@ backbone's and the probes'; ``launches`` from the main path's runs,
 from __future__ import annotations
 
 import copy
+import io
 import json
 import math
 import os
@@ -1416,22 +1417,23 @@ def phase_server(torch, pipe, offline, img_dir):
         device_batch_ms=stats["device_batch_ms"], latency_ms=[b["latency_ms"] for _, b in replies])
 
 
-def write_val_split(root: Path, tokenizer, n: int) -> tuple[str, dict]:
-    """A synthetic COCO split ``val2017`` under ``root``: ``n`` seeded 512²
+def write_val_split(root: Path, tokenizer, n: int, split: str = "val2017",
+                    first_id: int = 9000, seed: int = 31) -> tuple[str, dict]:
+    """A synthetic COCO split ``split`` under ``root``: ``n`` seeded 512²
     PNGs, one caption each from the tokenizer's words. Each image is a dim
     noise floor over a colour of its own with a bright band at a place of its
     own, so the encoder tells them apart (uniform noise looks alike to it).
     Returns ``root`` and the pixels by image id."""
     import numpy as np
 
-    rng = np.random.default_rng(31)
+    rng = np.random.default_rng(seed)
     words = [w for w in tokenizer.index_word.values() if w.startswith("w")]
-    img_dir = root / "images" / "val2017"
+    img_dir = root / "images" / split
     img_dir.mkdir(parents=True)
-    (root / "annotations").mkdir()
+    (root / "annotations").mkdir(exist_ok=True)
     images, anns, pixels = [], [], {}
     for i in range(n):
-        img_id = 9000 + i
+        img_id = first_id + i
         a = rng.integers(0, 60, (SIZE, SIZE, 3)) + rng.integers(0, 120, 3)
         lo = rng.integers(0, SIZE - SIZE // 8)
         a[lo:lo + SIZE // 8] = 255
@@ -1440,7 +1442,7 @@ def write_val_split(root: Path, tokenizer, n: int) -> tuple[str, dict]:
         images.append({"id": img_id, "file_name": f"{img_id}.png"})
         anns.append({"id": i + 1, "image_id": img_id,
                      "caption": " ".join(rng.choice(words, rng.integers(5, 13)))})
-    (root / "annotations" / "captions_val2017.json").write_text(
+    (root / "annotations" / f"captions_{split}.json").write_text(
         json.dumps({"images": images, "annotations": anns}))
     return str(root), pixels
 
@@ -2039,6 +2041,249 @@ def phase_decode_modes(fd, torch, pipe, fused, scaled32, scaled16):
     return {k: fused_counts[k] + att_counts[k] for k in att_counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training
+# ---------------------------------------------------------------------------
+TRAIN_BATCHES, TRAIN_STEPS, TRAIN_WARMUP = (10, 64), 10, 10
+TRAIN_MAIN_IMAGES, TRAIN_MAIN_VAL = 24, 16   # the train main's split: 3 batches of 10, 16 val
+
+
+def train_batch(rng, batch: int, max_len: int):
+    """``batch`` seeded uint8 images and captions: <start>-free token ids in
+    [4, V) with a zero tail of each row's own length (5 tokens or more)."""
+    import numpy as np
+
+    images = rng.integers(0, 256, (batch, SIZE, SIZE, 3), dtype=np.uint8)
+    caps = rng.integers(4, V, (batch, max_len)).astype(np.int32)
+    for row, n in zip(caps, rng.integers(5, max_len + 1, batch)):
+        row[n:] = 0
+    return images, caps
+
+
+def bn_stats(torch, model) -> list:
+    from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import BatchNorm32
+
+    return [(m.running_mean.clone(), m.running_var.clone())
+            for m in model.modules() if isinstance(m, BatchNorm32)]
+
+
+def phase_train_flagship(torch, dev, Config, Pipeline, tokenizer, workdir) -> dict:
+    """(a) ``Pipeline.train_step`` of the flagship (512², mobilenet224_1.0,
+    d 512, 6+6 layers, dff 2048, 8 heads, vocab 2000, max_seq_len 60, bf16
+    compute, float32 parameters, dropout 0.1, warm_up_steps 10) on one fixed
+    seeded batch of 10 and of 64, ``TRAIN_STEPS`` steps each: every loss
+    finite, the loss falling, the BatchNorm running statistics moved, every
+    parameter and statistic float32; the median step wall time, images/s,
+    the peak of allocated memory, and a CUDA-profiler window of two steps."""
+    import numpy as np
+
+    out = {}
+    for batch in TRAIN_BATCHES:
+        cfg = Config(batch_size=batch, warm_up_steps=TRAIN_WARMUP)
+        if (cfg.compute_dtype, cfg.dropout_rate, cfg.d_model, cfg.num_layers) != \
+                ("bfloat16", 0.1, D, NL):
+            raise SmokeFailure(f"training defaults moved: {cfg}")
+        pipe = Pipeline(tokenizer, MAX_LEN, cfg, seed=0, device=dev,
+                        checkpoint_path=str(Path(workdir) / f"train_ckpt{batch}"))
+        images, caps = train_batch(np.random.default_rng(batch), batch, MAX_LEN)
+        before = bn_stats(torch, pipe.state.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(pipe.train_step(images, caps))   # reads the loss back: synchronised
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"train batch {batch}: losses {losses}")
+        if not (losses[-1] < losses[0] and sum(losses[-3:]) < sum(losses[:3])):
+            raise SmokeFailure(f"train batch {batch}: the loss does not fall: {losses}")
+        after = bn_stats(torch, pipe.state.model)
+        moved = sum(not torch.equal(a[0], b[0]) for a, b in zip(before, after))
+        if moved != len(before):
+            raise SmokeFailure(f"train batch {batch}: {len(before) - moved} of {len(before)} "
+                               "BatchNorm layers kept their running mean")
+        if any(t.dtype != torch.float32 for t in pipe.state.model.state_dict().values()):
+            raise SmokeFailure(f"train batch {batch}: a master weight is not float32")
+        trace = profile_run(torch, lambda: [pipe.train_step(images, caps) for _ in range(2)])
+        wall = statistics.median(walls)
+        out[batch] = dict(step_s=wall, step_s_runs=walls, images_per_s=batch / wall,
+                          losses=losses, max_memory_allocated_bytes=peak,
+                          bn_layers_moved=moved, trace=trace)
+        del pipe
+        torch.cuda.empty_cache()
+    traces = {b: out[b].pop("trace") for b in out}
+    say("train_flagship", card=card_line(), steps=TRAIN_STEPS, warm_up_steps=TRAIN_WARMUP,
+        **{f"batch{b}": out[b] for b in out})
+    for b, trace in traces.items():
+        say(f"train_trace_batch{b}", steps_in_window=2, **trace)
+    return out
+
+
+def grads_of(torch, model, images, caps) -> tuple[float, dict]:
+    """The training loss and every parameter's gradient (no dropout)."""
+    from fpn_mt_image_captioning_torch.models.positional import create_masks
+    from fpn_mt_image_captioning_torch.train.losses import masked_sparse_ce
+
+    dev = next(model.parameters()).device
+    images = torch.as_tensor(images, device=dev)
+    caps = torch.as_tensor(caps, device=dev).long()
+    logits, _ = model.forward_train(images, caps[:, :-1], create_masks(caps[:, :-1]))
+    loss = masked_sparse_ce(caps[:, 1:], logits)
+    names = [n for n, _ in model.named_parameters()]
+    return loss.item(), dict(zip(names, torch.autograd.grad(loss, list(model.parameters()))))
+
+
+def phase_train_card_vs_cpu(torch, dev, Config, Pipeline, tokenizer, workdir):
+    """(b) A small float32 model (256², mobilenet224_0.35, d 32, 2+2 layers,
+    dropout 0) from the same weights on the card and on the CPU: the loss
+    (rtol 1e-4), every gradient (per tensor ‖Δ‖ ≤ 5e-2·(‖g_cpu‖ + 1e-3·max‖g‖),
+    median ≤ 1e-2: training-mode BatchNorm makes float32 gradients this
+    ill-conditioned, as the CPU tests against JAX measure), then two
+    ``train_step``s (lr(0) = 0, so the second moves the weights): each weight
+    within 2.5·alpha of the CPU's, the median within 2e-2·alpha."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.train.schedule import keras_alpha
+    from fpn_mt_image_captioning_torch.weights import to_flax
+
+    cfg = Config(image_input_size=256, backbone="mobilenet224_0.35", d_model=32, num_layers=2,
+                 num_heads=4, dff=64, compute_dtype="float32", dropout_rate=0.0,
+                 warm_up_steps=TRAIN_WARMUP, batch_size=3)
+    max_len = 12
+    variables = to_flax(Pipeline(tokenizer, max_len, cfg, seed=3, device="cpu").transformer)
+    rng = np.random.default_rng(15)
+    images = rng.integers(0, 256, (3, 256, 256, 3), dtype=np.uint8)
+    caps = rng.integers(4, V, (3, max_len)).astype(np.int32)
+    caps[1, 6:] = 0
+    cpu, card = (Pipeline(tokenizer, max_len, cfg, variables, device=d,
+                          checkpoint_path=str(Path(workdir) / f"vs_cpu_{name}"))
+                 for d, name in (("cpu", "cpu"), (dev, "card")))
+    cpu_loss, cpu_g = grads_of(torch, cpu.state.model, images, caps)
+    gpu_loss, gpu_g = grads_of(torch, card.state.model, images, caps)
+    if not math.isclose(gpu_loss, cpu_loss, rel_tol=1e-4):
+        raise SmokeFailure(f"train loss: card {gpu_loss}, CPU {cpu_loss}")
+    gmax = max(float(g.norm()) for g in cpu_g.values())
+    errs = {}
+    for k, g in cpu_g.items():
+        errs[k] = float((gpu_g[k].cpu() - g).norm()) / (float(g.norm()) + 1e-3 * gmax)
+    worst = max(errs, key=errs.get)
+    if errs[worst] > 5e-2 or statistics.median(errs.values()) > 1e-2:
+        raise SmokeFailure(f"gradients: {worst} {errs[worst]}, median "
+                           f"{statistics.median(errs.values())}")
+    losses = {name: [p.train_step(images, caps) for _ in range(2)]
+              for name, p in (("cpu", cpu), ("card", card))}
+    alpha = keras_alpha(cpu.learning_rate(1), 1)
+    cpu_sd, gpu_sd = cpu.state.model.state_dict(), card.state.model.state_dict()
+    dev_max, devs = 0.0, []
+    for k, t in cpu_sd.items():
+        d = (gpu_sd[k].cpu() - t).abs()
+        dev_max = max(dev_max, float(d.max()))
+        devs.append(d.flatten())
+    median_dev = float(torch.cat(devs).median())
+    if dev_max > 2.5 * alpha or median_dev > 2e-2 * alpha:
+        raise SmokeFailure(f"weights after two steps: max {dev_max}, median {median_dev}, "
+                           f"alpha {alpha}")
+    say("train_card_vs_cpu", loss_card=gpu_loss, loss_cpu=cpu_loss,
+        grad_rel_err_max=errs[worst], grad_rel_err_worst=worst,
+        grad_rel_err_median=statistics.median(errs.values()),
+        step_losses=losses, alpha=alpha,
+        weight_dev_max=dev_max, weight_dev_median=median_dev)
+
+
+def phase_train_main(fd, fb, torch, Config, Pipeline, tokenizer, workdir) -> dict:
+    """(c) ``python -m fpn_mt_image_captioning_torch.train``'s ``main`` on the
+    card over a synthetic split of ``TRAIN_MAIN_IMAGES`` training PNGs
+    (``write_val_split``'s kind; batches of 10, the tail of 4 padded) and
+    ``TRAIN_MAIN_VAL`` validation PNGs, at the flagship's shapes (the
+    tokenizer of 2000 words stored first, so the dataset loads it) with the
+    fused backbone, for 2 epochs, ``bn_finalize_batches`` 2 and an
+    evaluation an epoch. CIDEr is the real ``MetricEval``'s plus the epoch
+    number, so that epoch 2 saves a checkpoint. Counters reset just before
+    ``main`` and read just after: each decode kernel at the decode steps ×
+    its launches a step, ``fused_ir_block`` at 17 × the encodes of the two
+    evaluations. The checkpoint the saver wrote restores bitwise to the
+    pipeline's final state; the final msgpack file, read through
+    ``Pipeline.from_config``, captions the validation pixels as the trained
+    pipeline does. Returns the launch counts."""
+    import contextlib
+
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.data.metrics import MetricEval
+    from fpn_mt_image_captioning_torch.data.tokenizer import store_tokenizer_to_path
+    from fpn_mt_image_captioning_torch.train.__main__ import main as train_main
+
+    root = Path(workdir) / "train_main"
+    datadir, _ = write_val_split(root / "data", tokenizer, TRAIN_MAIN_IMAGES, "train2017",
+                                 first_id=7000, seed=41)
+    _, pixels = write_val_split(root / "data", tokenizer, TRAIN_MAIN_VAL, seed=43)
+    store_tokenizer_to_path(tokenizer, root / "tokenizer.json")
+    cfg = Config(datadir=datadir, epochs=2, batch_size=10, n_epoch_to_evaluate=1,
+                 bn_finalize_batches=2, n_val_dataset=TRAIN_MAIN_VAL, warm_up_steps=TRAIN_WARMUP,
+                 fused_backbone=True, tokenizer_filename=str(root / "tokenizer.json"),
+                 additional_filename=str(root / "info.json"),
+                 transformer_checkpoint_path=str(root / "ckpt"),
+                 transformer_weight_path=str(root / "weights.msgpack"),
+                 result_dir=str(root / "results"))
+    real, epochs = MetricEval.__call__, []
+
+    def scored(self, path):
+        epochs.append(real(self, path))
+        return epochs[-1] + len(epochs)
+
+    MetricEval.__call__ = scored
+    reset_all_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.chdir(root), contextlib.redirect_stdout(io.StringIO()) as printed, \
+                contextlib.redirect_stderr(io.StringIO()):   # the progress bars
+            pipe = train_main(cfg)
+    finally:
+        MetricEval.__call__ = real
+    wall = time.perf_counter() - t0
+    counts = read_all_counts()
+    nl = cfg.num_layers
+    steps = fd.decoder_logsoftmax_topk.launches
+    check_decode_counts(fd, {fd.decoder_linear: 6 * nl + 1, fd.decoder_add_layernorm: 3 * nl,
+                             fd.decoder_self_attention: nl, fd.decoder_cross_attention: nl,
+                             fd.decoder_logsoftmax_topk: 1}, steps)
+    encodes = 2 * -(-TRAIN_MAIN_VAL // cfg.decode_batch)
+    if counts["fused_ir_block"] != N_BLOCKS * encodes:
+        raise SmokeFailure(f"train main: {counts['fused_ir_block']} backbone launches for "
+                           f"{encodes} encodes × {N_BLOCKS}")
+    out = printed.getvalue()
+    chunks = min(cfg.bn_finalize_batches, TRAIN_MAIN_IMAGES // cfg.batch_size)
+    if "Saving checkpoint for epoch 2" not in out or \
+            out.count(f"BN stats finalized over {chunks} train batches") != 2:
+        raise SmokeFailure(f"train main printed: {out[-2000:]}")
+    best = pipe.smart_ckpt_saver.best_saved_step
+    if best != 2 or pipe.ckpt_manager.all_steps() != [2]:
+        raise SmokeFailure(f"train main: best step {best}, steps {pipe.ckpt_manager.all_steps()}")
+    restored, final = pipe.ckpt_manager.restore(pipe.state_tree(), step=best), pipe.state_tree()
+    if not trees_equal(restored, final):
+        raise SmokeFailure("train main: the checkpoint does not restore bitwise")
+    losses = list(pipe.train_loss_history)
+    if len(losses) != 2 * -(-TRAIN_MAIN_IMAGES // cfg.batch_size) or \
+            not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"train main: losses {losses}")
+    order = sorted(pixels)
+    images = np.stack([pixels[i] for i in order])
+    served = Pipeline.from_config(cfg)
+    want, got = pipe.predict_batch(images), served.predict_batch(images)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise SmokeFailure("train main: the weight file captions otherwise than the trained "
+                           "pipeline")
+    say("train_main", card=card_line(), wall_s=wall, train_steps=len(losses), losses=losses,
+        cider=epochs, best_saved_step=best, decode_steps=steps,
+        launches={k: n for k, n in counts.items() if k not in PROBE_TPU_KERNELS},
+        checkpoint_bitwise=True, from_config_captions_equal=True,
+        weights_bytes=os.path.getsize(cfg.transformer_weight_path),
+        caption0=pipe.to_caption(want[0][0], want[1][0])[:60])
+    return counts
+
+
 def greedy_of(pipe, images):
     """``greedy_decode`` of ``images`` on ``pipe``'s weights, as numpy."""
     from fpn_mt_image_captioning_torch.decode.beam_search import greedy_decode
@@ -2129,6 +2374,10 @@ def main() -> int:
         del fused
         eval_counts, fused_eval_counts = phase_evaluate(
             fd, dev, Config, Pipeline, tokenizer, variables, workdir)
+        torch.cuda.empty_cache()
+        phase_train_flagship(torch, dev, Config, Pipeline, tokenizer, workdir)
+        phase_train_card_vs_cpu(torch, dev, Config, Pipeline, tokenizer, workdir)
+        train_counts = phase_train_main(fd, fb, torch, Config, Pipeline, tokenizer, workdir)
     eval_counts["fused_ir_block"] = fused_eval_counts["fused_ir_block"]
 
     counts.update(probe_counts)
@@ -2148,7 +2397,8 @@ def main() -> int:
                         "replaces": replaces, "launches": counts[k.__name__], **row,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "evaluate_launches": eval_counts[k.__name__],
-                        "decode_modes_launches": modes_counts[k.__name__]})
+                        "decode_modes_launches": modes_counts[k.__name__],
+                        "train_launches": train_counts[k.__name__]})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -9,9 +9,10 @@ ROUGE-L and CIDEr-D.
         [--datadir=datasets/iuxray] [--n_val_dataset=50] [any Config --key=value]
 
 The weights are the Flax msgpack file ``transformer_weight_path`` of the JAX
-package's ``Pipeline.save_weights`` (see ``test.py``). Training is not ported:
-``--is_training=true`` raises. (The module is not named ``train.py``: the
-port's ``train`` package takes that name.)
+package's ``Pipeline.save_weights`` or of the port's training (see
+``test.py``). This module does not train: ``--is_training=true`` raises and
+names ``python -m fpn_mt_image_captioning_torch.train``, the port's training
+leg of root ``train.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def main(cfg: Config, *, device=None) -> list[dict]:
     """Evaluate on ``cfg.datatype_val``; ``device`` as for ``Pipeline`` (the
     card unless ``"cpu"`` is asked for)."""
     if cfg.is_training:
-        raise NotImplementedError("training is not ported yet; evaluate with "
+        raise NotImplementedError("evaluate.py does not train: train with python -m "
+                                  "fpn_mt_image_captioning_torch.train, or evaluate with "
                                   "--is_training=false")
     val_datasets = COCO_Images_ImageID(cfg.datadir, cfg.datatype_val, cfg.n_val_dataset,
                                        image_size=cfg.image_input_size, seed=cfg.seed)

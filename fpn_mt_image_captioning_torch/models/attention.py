@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .layers import Dense, Dropout, dropout
+
 __all__ = ["MultiHeadAttention", "MultiViewAttention"]
 
 NEG_INF_SCALE = -1e9  # reference parity: logits += mask * -1e9
@@ -30,7 +32,10 @@ class MultiViewAttention(nn.Module):
     The JAX module folds the K/V projections into the query side (a TPU op
     count trick) and pads the small views into one stacked group; this port
     projects K/V directly and attends per view unpadded, which computes the
-    same function."""
+    same function. The weights are cast to the baseline's dtype inside the
+    op. While training, each view's output is dropped out after ``wo``/``bo``
+    and before the sum, as the JAX module drops its stacked per-view
+    outputs."""
 
     def __init__(self, num_views: int, d_model: int, num_heads: int):
         super().__init__()
@@ -47,20 +52,25 @@ class MultiViewAttention(nn.Module):
         sources: list[torch.Tensor],        # V tensors (B, Lv, d)
         kv_w: torch.Tensor,                 # (V, d, 2d) — [Wk | Wv] per view
         kv_b: torch.Tensor,                 # (V, 2d)
+        drop: Dropout | None = None,
+        site: str = "mva",
     ) -> torch.Tensor:
         b, lq, d = baseline.shape
         h = self.num_heads
         dh = d // h
+        dt = baseline.dtype
+        wq, bq, wo, bo = (p.to(dt) for p in (self.wq, self.bq, self.wo, self.bo))
+        kv_w, kv_b = kv_w.to(dt), kv_b.to(dt)
         out = 0
         for vi, x in enumerate(sources):
-            q = (baseline @ self.wq[vi] + self.bq[vi]).reshape(b, lq, h, dh)
+            q = (baseline @ wq[vi] + bq[vi]).reshape(b, lq, h, dh)
             kv = x @ kv_w[vi] + kv_b[vi]                               # (B, Lv, 2d)
             k = kv[..., :d].reshape(b, -1, h, dh)
             v = kv[..., d:].reshape(b, -1, h, dh)
             logits = torch.einsum("bqhe,blhe->bhql", q, k) * (1.0 / math.sqrt(dh))
             w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
             ctx = torch.einsum("bhql,blhe->bqhe", w, v).reshape(b, lq, d)
-            out = out + ctx @ self.wo[vi] + self.bo[vi]
+            out = out + dropout(ctx @ wo[vi] + bo[vi], drop, f"{site}.view_{vi}")
         return out
 
 
@@ -72,10 +82,10 @@ class MultiHeadAttention(nn.Module):
         assert d_model % num_heads == 0
         self.d_model, self.num_heads = d_model, num_heads
         self.depth = d_model // num_heads
-        self.wq = nn.Linear(d_model, d_model)
-        self.wk = nn.Linear(d_model, d_model)
-        self.wv = nn.Linear(d_model, d_model)
-        self.out = nn.Linear(d_model, d_model)
+        self.wq = Dense(d_model, d_model)
+        self.wk = Dense(d_model, d_model)
+        self.wv = Dense(d_model, d_model)
+        self.out = Dense(d_model, d_model)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape

@@ -1,11 +1,13 @@
-"""MobileNetV2 backbone, eval mode, tapped at C3/C4/C5 for the FPN.
+"""MobileNetV2 backbone, tapped at C3/C4/C5 for the FPN.
 
 Port of ``fpn_mt_image_captioning_tpu/models/backbones/mobilenet_v2.py``
 (Keras ``MobileNetV2`` tapped at ``block_5_add`` / ``block_12_add`` /
 ``out_relu``, strides 8/16/32). Module names mirror the Flax parameter tree so
 ``weights.from_flax`` maps leaf for leaf. Runs NCHW. What differs from
 PyTorch's defaults: BatchNorm epsilon is Keras' 1e-3, and every 3×3 conv pads
-TF-"SAME" (0 before, 1 after on a stride-2 even extent).
+TF-"SAME" (0 before, 1 after on a stride-2 even extent). ``train=True``
+normalizes with the batch's statistics and updates the running ones, as
+``flax.linen.BatchNorm(use_running_average=False)`` does.
 """
 
 from __future__ import annotations
@@ -41,79 +43,101 @@ def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> 
 
 
 class BatchNorm32(nn.Module):
-    """Inference BatchNorm over NCHW channels with running statistics, computed
-    in float32 whatever the input dtype (Flax promotes to the float32
-    statistics the same way). Training-mode statistics are not ported yet."""
+    """BatchNorm over NCHW channels, computed in float32 whatever the input
+    dtype (Flax promotes to the float32 statistics the same way); the result
+    comes back in the input's dtype.
 
-    def __init__(self, c: int, eps: float = 1e-3):
+    Inference normalizes with the running statistics. Training follows Flax
+    0.12's ``_compute_stats``: float32 batch moments over (N, H, W), ``var =
+    E[x²] − E[x]²`` clamped at 0 (``use_fast_variance``), that biased
+    variance both to normalize and in the running update ``ra = m·ra +
+    (1 − m)·batch`` with ``m = momentum`` (Keras' convention, the opposite of
+    ``F.batch_norm``'s, which also keeps an unbiased running variance)."""
+
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.999):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x.float(), self.running_mean.float(), self.running_var.float(),
-            self.weight.float(), self.bias.float(), False, 0.0, self.eps,
-        ).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(
+                x.float(), self.running_mean.float(), self.running_var.float(),
+                self.weight.float(), self.bias.float(), False, 0.0, self.eps,
+            ).to(x.dtype)
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class _ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
-                 groups: int = 1, use_relu6: bool = True):
+                 groups: int = 1, use_relu6: bool = True, bn_momentum: float = 0.999):
         super().__init__()
         self.conv = SameConv2d(cin, cout, kernel, stride, groups=groups, bias=False)
-        self.bn = BatchNorm32(cout)
+        self.bn = BatchNorm32(cout, momentum=bn_momentum)
         self.use_relu6 = use_relu6
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, train: bool = False):
+        x = self.bn(self.conv(x), train)
         return F.relu6(x) if self.use_relu6 else x
 
 
 class _InvertedResidual(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int, expansion: int):
+    def __init__(self, cin: int, cout: int, stride: int, expansion: int,
+                 bn_momentum: float = 0.999):
         super().__init__()
         hidden = cin * expansion
-        self.expand = _ConvBN(cin, hidden, 1) if expansion != 1 else None
-        self.depthwise = _ConvBN(hidden, hidden, 3, stride, groups=hidden)
-        self.project = _ConvBN(hidden, cout, 1, use_relu6=False)
+        m = bn_momentum
+        self.expand = _ConvBN(cin, hidden, 1, bn_momentum=m) if expansion != 1 else None
+        self.depthwise = _ConvBN(hidden, hidden, 3, stride, groups=hidden, bn_momentum=m)
+        self.project = _ConvBN(hidden, cout, 1, use_relu6=False, bn_momentum=m)
         self.residual = stride == 1 and cin == cout
 
-    def forward(self, x):
-        h = x if self.expand is None else self.expand(x)
-        h = self.project(self.depthwise(h))
+    def forward(self, x, train: bool = False):
+        h = x if self.expand is None else self.expand(x, train)
+        h = self.project(self.depthwise(h, train), train)
         return h + x if self.residual else h
 
 
 class MobileNetV2Backbone(nn.Module):
-    """Returns ``(C3, C4, C5)`` NCHW feature maps at strides 8/16/32."""
+    """Returns ``(C3, C4, C5)`` NCHW feature maps at strides 8/16/32.
+    ``bn_momentum``: Keras MobileNetV2's 0.999 by default."""
 
-    def __init__(self, alpha: float = 1.0):
+    def __init__(self, alpha: float = 1.0, bn_momentum: float = 0.999):
         super().__init__()
+        m = bn_momentum
         first = make_divisible(32 * alpha)
-        self.stem = _ConvBN(3, first, 3, 2)
+        self.stem = _ConvBN(3, first, 3, 2, bn_momentum=m)
         self._blocks: list[tuple[str, int]] = []
         cin = first
         for gi, (t, c, n, s) in enumerate(_BLOCK_CONFIG):
             out_ch = make_divisible(c * alpha)
             for bi in range(n):
                 name = f"block_{gi}_{bi}"
-                self.add_module(name, _InvertedResidual(cin, out_ch, s if bi == 0 else 1, t))
+                self.add_module(name, _InvertedResidual(cin, out_ch, s if bi == 0 else 1, t, m))
                 self._blocks.append((name, gi))
                 cin = out_ch
         last = make_divisible(1280 * alpha) if alpha > 1.0 else 1280
-        self.head = _ConvBN(cin, last, 1)
+        self.head = _ConvBN(cin, last, 1, bn_momentum=m)
         cfg = _BLOCK_CONFIG
         self.tap_channels = (make_divisible(cfg[_C3_GROUP][1] * alpha),
                              make_divisible(cfg[_C4_GROUP][1] * alpha), last)
 
-    def forward(self, x: torch.Tensor):
-        x = self.stem(x)
+    def forward(self, x: torch.Tensor, train: bool = False):
+        x = self.stem(x, train)
         taps = {}
         for name, gi in self._blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
             taps[gi] = x
-        return taps[_C3_GROUP], taps[_C4_GROUP], self.head(x)
+        return taps[_C3_GROUP], taps[_C4_GROUP], self.head(x, train)

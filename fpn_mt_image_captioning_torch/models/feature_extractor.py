@@ -42,10 +42,11 @@ class _HeadTrunk(nn.Module):
 class FeatureExtractor(nn.Module):
     def __init__(self, backbone_name: str = "mobilenet224_1.0", d_model: int = 512,
                  feature_size: int = 256, n_conv_submodule: int = 2,
-                 activation: str = "leaky_relu", leaky_relu_alpha: float = 0.2):
+                 activation: str = "leaky_relu", leaky_relu_alpha: float = 0.2,
+                 bn_momentum: float | None = None):
         super().__init__()
         f = feature_size
-        self.backbone = resolve_backbone(backbone_name)
+        self.backbone = resolve_backbone(backbone_name, bn_momentum)
         self.fpn = FPN(*self.backbone.tap_channels, feature_size=f)
         self.regression_trunk = _HeadTrunk(n_conv_submodule, f)
         self.classification_trunk = _HeadTrunk(n_conv_submodule, f)
@@ -61,10 +62,11 @@ class FeatureExtractor(nn.Module):
         out = self.act(self.fuse_conv1(coattention(score, hs)))
         return self.act(self.fuse_conv2(max_pool_2x(out)))
 
-    def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
-        """``images``: (B, 3, S, S) in [-1, 1], in the model's dtype. Returns
-        the five views (B, d_model, S/16 … S/256, same)."""
-        C3, C4, C5 = self.backbone(images)
+    def forward(self, images: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
+        """``images``: (B, 3, S, S) in [-1, 1], in the compute dtype. Returns
+        the five views (B, d_model, S/16 … S/256, same). ``train``: BatchNorm
+        in training mode (batch statistics; the running ones updated)."""
+        C3, C4, C5 = self.backbone(images, train)
         return [self._per_level(p) for p in self.fpn(C3, C4, C5)]
 
     def from_taps(self, C3: torch.Tensor, C4: torch.Tensor, C5: torch.Tensor) -> list[torch.Tensor]:

@@ -1,13 +1,20 @@
 """Shared layer utilities: image normalization, activations, the float32
-LayerNorm, TF-"SAME" convolutions, nearest upsampling and max pooling.
+LayerNorm, the dense layer, TF-"SAME" convolutions, nearest upsampling, max
+pooling and training-mode dropout.
 
 Port of ``fpn_mt_image_captioning_tpu/models/layers.py``. The vision stack of
 the port runs in PyTorch's NCHW layout, so ``upsample_like`` and
 ``max_pool_2x`` take NCHW tensors where the JAX functions take NHWC.
+
+Mixed precision as Flax's ``dtype=`` does it: ``Dense`` and ``SameConv2d``
+cast their weights to the dtype of their input inside the op, so float32
+parameters train under a bfloat16 compute dtype and receive float32
+gradients (a weight already in the input's dtype is used as it is).
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Callable
 
@@ -19,9 +26,12 @@ __all__ = [
     "normalize_images",
     "resolve_activation",
     "LayerNorm32",
+    "Dense",
     "SameConv2d",
     "upsample_like",
     "max_pool_2x",
+    "Dropout",
+    "dropout",
 ]
 
 
@@ -63,6 +73,13 @@ class LayerNorm32(nn.LayerNorm):
         ).to(x.dtype)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in the dtype of its input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     """XLA/TF "SAME": output ceil(n/s), the odd pad goes after — a stride-2
     3×3 on an even extent pads 0 before and 1 after."""
@@ -83,12 +100,13 @@ class SameConv2d(nn.Conv2d):
         if x.shape[2] == 0 or x.shape[3] == 0:
             return x.new_empty((x.shape[0], self.out_channels,
                                 -(-x.shape[2] // sh), -(-x.shape[3] // sw)))
+        weight = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         ph, pw = _same_pads(x.shape[2], kh, sh), _same_pads(x.shape[3], kw, sw)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            (ph[0], pw[0]), 1, self.groups)
+            return F.conv2d(x, weight, bias, self.stride, (ph[0], pw[0]), 1, self.groups)
         x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1, self.groups)
+        return F.conv2d(x, weight, bias, self.stride, 0, 1, self.groups)
 
 
 def upsample_like(source: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
@@ -116,3 +134,35 @@ def he_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None
     scaled so the truncated draw has variance 2/fan_in."""
     std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+class Dropout:
+    """The dropout masks of one training step. Each site (a stable name, such
+    as ``"decoder.layer_0.dropout2"``) draws its mask from a generator on
+    ``device`` seeded with a hash of ``(seed, step, site)``: a pure function,
+    as the JAX package folds the step into its key, so a resumed run draws
+    the same masks, and a recompute under ``torch.utils.checkpoint`` (which
+    restores only the global RNG, not this generator) draws the same mask as
+    the forward it repeats. Kept values are scaled by ``1 / (1 - rate)``, as
+    ``flax.linen.Dropout`` scales them; the bits differ from JAX's threefry."""
+
+    def __init__(self, rate: float, seed: int, step: int, device: torch.device):
+        self.rate, self.seed, self.step = rate, seed, step
+        self.generator = torch.Generator(device=device)
+
+    def site_seed(self, site: str) -> int:
+        digest = hashlib.blake2b(f"{self.seed}/{self.step}/{site}".encode(), digest_size=8)
+        return int.from_bytes(digest.digest(), "little") >> 1
+
+    def __call__(self, x: torch.Tensor, site: str) -> torch.Tensor:
+        if self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        self.generator.manual_seed(self.site_seed(site))
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, drop: Dropout | None, site: str) -> torch.Tensor:
+    """``drop(x, site)`` while training; ``x`` itself when ``drop`` is None."""
+    return x if drop is None else drop(x, site)

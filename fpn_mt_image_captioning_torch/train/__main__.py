@@ -1,0 +1,150 @@
+"""Train on the CUDA card (the port's counterpart of the training leg of the
+repository's root ``train.py``):
+
+    python -m fpn_mt_image_captioning_torch.train
+        [--datadir=datasets/iuxray] [--epochs=100] [--batch_size=10]
+        [any Config --key=value]
+
+Builds the validation iterator and the training dataset (fitting or loading
+the tokenizer), the training pipeline (restoring the latest of its own
+checkpoints under ``transformer_checkpoint_path``), stores ``max_seq_len``
+and the best epoch in the additional-info sidecar, then runs the epoch loop:
+a train step a batch (a short tail batch padded with zero rows to
+``batch_size``, as the JAX package pads it: they add nothing to the loss and
+enter the BatchNorm batch statistics as there), the epoch's mean loss, and
+every ``n_epoch_to_evaluate`` epochs the BatchNorm re-estimation
+(``bn_finalize_batches`` > 0), ``evaluate`` on the fused decode kernels, the
+result file, CIDEr, the smart saver (an early stop ends the loop). ``loss``
+and ``CIDEr`` go to a TensorBoard event file and ``scalars.jsonl`` under
+``logs/transformer/<time>/train``. At the end it restores the checkpoint of
+the best CIDEr saved (and warns when none was) and writes the float32
+weights to ``transformer_weight_path`` as Flax msgpack, which the JAX
+package's ``Pipeline.load_weights`` reads.
+
+Before any step it raises for what is not ported: ``mesh.enabled``,
+``retinanet_weight_path``, ``export_artifact_dir``, ``profile_dir``, and a
+checkpoint directory of Orbax checkpoints. ``--is_training=false`` runs the
+evaluation of ``fpn_mt_image_captioning_torch.evaluate``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from datetime import datetime
+
+import numpy as np
+
+from ..config import Config
+from ..data.dataset import (COCO_Images_ImageID, get_coco_images_dataset, load_additional_info,
+                            store_additional_info)
+from ..utils.tensorboard import ScalarLogger, SummaryWriter
+from .pipeline import Pipeline, refuse_unported_training_options
+
+__all__ = ["main"]
+
+
+def pad_batch(img: np.ndarray, caption_token: np.ndarray, batch_size: int):
+    """A tail batch zero-padded to ``batch_size`` rows."""
+    pad = batch_size - img.shape[0]
+    if pad <= 0:
+        return img, caption_token
+    return (np.concatenate([img, np.zeros((pad, *img.shape[1:]), img.dtype)]),
+            np.concatenate([caption_token,
+                            np.zeros((pad, caption_token.shape[1]), caption_token.dtype)]))
+
+
+def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
+    """Train (or, with ``is_training`` false, evaluate); ``device`` as for
+    ``Pipeline`` (the card unless ``"cpu"`` is asked for). Returns the
+    training pipeline (the evaluation's results)."""
+    if not cfg.is_training:
+        from ..evaluate import main as evaluate_main
+
+        return evaluate_main(cfg, device=device)
+    refuse_unported_training_options(cfg)
+    val_datasets = COCO_Images_ImageID(cfg.datadir, cfg.datatype_val, cfg.n_val_dataset,
+                                       image_size=cfg.image_input_size, seed=cfg.seed)
+    additional_info = load_additional_info(cfg.additional_filename)
+    key_epoch = "mt_epoch_" + os.path.basename(cfg.transformer_checkpoint_path)
+
+    train_datasets, max_seq_len, _train_set_len = get_coco_images_dataset(
+        cfg.datadir, cfg.datatype_train, cfg.n_train_dataset, config=cfg)
+    master = Pipeline(cfg.tokenizer_filename, max_seq_len, cfg, device=device,
+                      checkpoint_path=cfg.transformer_checkpoint_path)
+    additional_info["max_seq_len"] = max_seq_len
+    store_additional_info(additional_info, cfg.additional_filename)
+
+    log_dir = f"logs/transformer/{datetime.now().strftime('%Y%m%d-%H%M%S')}/train"
+    writer = SummaryWriter(log_dir)
+    jsonl = ScalarLogger(os.path.join(log_dir, "scalars.jsonl"))
+
+    start_epoch = 0
+    if master.ckpt_manager.latest_step is not None:
+        start_epoch = additional_info.get(key_epoch, additional_info.get("transformer_epoch", 0))
+
+    try:
+        from tqdm import tqdm
+    except ImportError:  # tqdm optional
+        tqdm = lambda x, **k: x
+
+    try:
+        for epoch in range(start_epoch, cfg.epochs):
+            print(f"Epoch {epoch + 1} / {cfg.epochs}")
+            epoch_losses = []
+            bar = tqdm(train_datasets, total=len(train_datasets))
+            for img, caption_token in bar:
+                loss = master.train_step(*pad_batch(img, caption_token, cfg.batch_size))
+                epoch_losses.append(loss)
+                if hasattr(bar, "set_postfix"):
+                    bar.set_postfix(loss=f"{loss:.4f}")
+
+            mean_loss = sum(epoch_losses) / max(len(epoch_losses), 1)
+            writer.scalar("loss", mean_loss, epoch)
+            jsonl.scalar("loss", mean_loss, epoch)
+
+            if (epoch + 1) % cfg.n_epoch_to_evaluate == 0:
+                if cfg.bn_finalize_batches > 0:
+                    used = master.finalize_batch_stats(iter(train_datasets),
+                                                       cfg.bn_finalize_batches)
+                    print(f"BN stats finalized over {used} train batches")
+                print("Evaluating...")
+                results = master.evaluate(iter(val_datasets))
+                os.makedirs(os.path.dirname(cfg.result_file) or ".", exist_ok=True)
+                with open(cfg.result_file, "w") as outfile:
+                    json.dump(results, outfile)
+                if results:
+                    cider = master.metric_eval(cfg.result_file)
+                    writer.scalar("CIDEr", cider, epoch)
+                    jsonl.scalar("CIDEr", cider, epoch)
+                    should_break = master.smart_ckpt_saver(epoch + 1, cider, master.state_tree)
+                    if should_break == -1:
+                        break
+                    elif should_break == 1:
+                        additional_info[key_epoch] = master.smart_ckpt_saver.max_acc_epoch
+                        store_additional_info(additional_info, cfg.additional_filename)
+            print()
+
+        # restore the step of the best CIDEr among the epochs actually saved:
+        # the latest checkpoint can be a worse one (the saver's early-epoch
+        # baseline reset allows a later save below the best)
+        best_step = master.smart_ckpt_saver.best_saved_step
+        if best_step is None and master.ckpt_manager.latest_step is None:
+            print("WARNING: no CIDEr-improving checkpoint was ever saved — "
+                  "exporting the FINAL-epoch weights, not a validated best")
+        else:
+            print("Saving Transformer weights for epoch "
+                  f"{master.smart_ckpt_saver.max_acc_epoch}")
+        restored = master.ckpt_manager.restore(master.state_tree(), step=best_step)
+        if restored is not None:
+            master.load_state_tree(restored)
+        master.save_weights(cfg.transformer_weight_path)
+    finally:
+        writer.close()
+        jsonl.close()
+    return master
+
+
+if __name__ == "__main__":
+    main(Config.from_flags(sys.argv[1:]))

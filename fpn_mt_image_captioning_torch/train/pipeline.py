@@ -1,4 +1,4 @@
-"""Pipeline — the captioning surface of the port (inference side of
+"""Pipeline — the captioning and training surface of the port (port of
 ``fpn_mt_image_captioning_tpu/train/pipeline.py``).
 
 ``predict_batch`` encodes a batch of images and runs the batched beam search:
@@ -13,15 +13,28 @@ captions a validation split and ``metric_eval`` scores the result file
 (BLEU-1..4, METEOR, ROUGE-L, CIDEr-D). With ``Config.fused_backbone`` (and
 ``use_pallas``) the encode runs the MobileNetV2 backbone as fused
 inverted-residual kernels (``ops/fused_backbone.py``); a fault there raises,
-it never falls back to the eager encode. Orbax checkpoint restore, training
-and the multi-device paths are not ported yet.
+it never falls back to the eager encode.
+
+Training: a pipeline given ``checkpoint_path`` keeps a training state
+(``TrainState``: the float32 master model on the device, the Keras-Adam
+state, the step) and restores the latest of its checkpoints
+(``train/checkpoint.py``, the port's own files) when it starts.
+``train_step`` runs ``build_train_step_fn``'s step (loss, gradients,
+per-variable clipping, AMSGrad, BatchNorm statistics);
+``finalize_batch_stats`` re-estimates the BatchNorm statistics;
+``state_tree``/``load_state_tree`` carry the state in the JAX ``TrainState``
+layout. Captioning serves a cast and packed copy of the master weights,
+made again from the current ones after the master changes. Orbax
+checkpoints, the Keras ``.h5`` import, the mesh and the multi-device paths
+are not ported: asking a training pipeline for them raises.
 
 Weights come from the JAX package (its variables tree as numpy arrays, or the
 Flax msgpack file its ``Pipeline.save_weights`` writes: ``load_weights``, and
 ``from_config`` where ``Config.transformer_weight_path`` exists) or from a
 seeded init. With ``Config.compute_dtype`` bfloat16 the weights the card runs
 are cast once; LayerNorm, BatchNorm, softmax and beam scores stay float32.
-``save_weights`` writes the served weights, so it needs a float32 pipeline.
+``save_weights`` writes the served weights, so it needs a float32 pipeline,
+or the float32 master weights of a training pipeline.
 
 The pipeline runs on ``device`` — by default the CUDA card; without one it
 raises unless the caller asks for ``device="cpu"`` (which runs the plain
@@ -31,9 +44,11 @@ PyTorch versions of the kernels).
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 import os
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,14 +58,22 @@ from ..data.dataset import load_max_seq_len
 from ..data.metrics import MetricEval
 from ..data.tokenizer import Tokenizer, load_tokenizer_from_path
 from ..decode.beam_search import beam_search, cast_for_inference, sample_decode
+from ..models.backbones.mobilenet_v2 import BatchNorm32
+from ..models.layers import Dropout
 from ..models.positional import create_masks
 from ..models.transformer import Transformer
 from ..ops.fused_backbone import (fused_encode, pack_backbone_weights, packed_to,
                                   supports_fused_backbone)
 from ..ops.fused_decoder import FUSED_ACTIVATIONS, pack_decoder_weights
-from ..weights import from_flax, init_weights, read_flax_msgpack, to_flax, write_flax_msgpack
+from ..weights import (from_flax, init_weights, read_flax_msgpack, to_flax,
+                       train_state_from_flax, train_state_to_flax, write_flax_msgpack)
+from .checkpoint import CheckpointManager, SmartCheckpointSaver
+from .losses import masked_sparse_ce
+from .schedule import (KerasAdamState, clip_by_per_variable_norm_, custom_schedule,
+                       keras_adam_, keras_adam_init)
 
-__all__ = ["Pipeline", "resolve_device"]
+__all__ = ["Pipeline", "TrainState", "build_train_step_fn", "resolve_device",
+           "refuse_unported_training_options"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -63,6 +86,69 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
                 "PyTorch versions of the kernels on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def refuse_unported_training_options(cfg: Config) -> None:
+    """Raise for each training option of the JAX package that the port does
+    not have yet, so none is silently ignored."""
+    if cfg.mesh.enabled:
+        raise NotImplementedError("mesh.enabled: training over a device mesh is not ported "
+                                  "(ROADMAP A.9)")
+    if cfg.retinanet_weight_path:
+        raise NotImplementedError(
+            f"retinanet_weight_path={cfg.retinanet_weight_path!r}: importing the Keras "
+            "RetinaNet .h5 weights needs an HDF5 reader and is not ported (ROADMAP A.7)")
+    if cfg.export_artifact_dir:
+        raise NotImplementedError(f"export_artifact_dir={cfg.export_artifact_dir!r}: the "
+                                  "serving-artifact export is not ported (ROADMAP A.10)")
+    if cfg.profile_dir:
+        raise NotImplementedError(f"profile_dir={cfg.profile_dir!r}: the training step "
+                                  "tracer is not ported (ROADMAP A.10)")
+
+
+class TrainState(NamedTuple):
+    model: Transformer          # float32 master weights and BatchNorm statistics
+    opt_state: KerasAdamState
+    step: int
+
+
+def build_train_step_fn(learning_rate, *, seed: int, dropout_rate: float,
+                        clipnorm: float = 1.0):
+    """The ``(state, img, caption_token) → (state, loss)`` training step:
+    teacher-forced forward with BatchNorm in training mode (its running
+    statistics updated in place) and dropout drawn from ``(seed, step)``,
+    ``masked_sparse_ce``, gradients, per-variable clipping to ``clipnorm``,
+    then Keras AMSGrad on the float32 master weights (in place)."""
+
+    def train_step(state: TrainState, img: torch.Tensor, caption_token: torch.Tensor):
+        tar_inp, tar_real = caption_token[:, :-1], caption_token[:, 1:]
+        model = state.model
+        drop = Dropout(dropout_rate, seed, state.step, img.device)
+        logits, _ = model.forward_train(img, tar_inp, create_masks(tar_inp), drop)
+        loss = masked_sparse_ce(tar_real, logits)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        clip_by_per_variable_norm_(grads, clipnorm)
+        opt_state = keras_adam_(params, grads, state.opt_state, learning_rate)
+        return TrainState(model, opt_state, state.step + 1), loss.detach()
+
+    return train_step
+
+
+def _population_stats(per_batch: list[list[tuple[np.ndarray, np.ndarray]]]):
+    """Per-batch BatchNorm moments, ``[[(mean, var) of each layer] of each
+    batch]``, combined into population moments: ``M = E_k[m_k]``, ``V =
+    E_k[v_k + m_k²] − M²``, exact for equal-size batches (float64, clamped
+    at 0 against rounding). Returns ``[(mean, var) float32 of each layer]``."""
+    out = []
+    for layer in zip(*per_batch):
+        m = np.stack([np.asarray(mean, np.float64) for mean, _ in layer])
+        v = np.stack([np.asarray(var, np.float64) for _, var in layer])
+        mean = m.mean(0)
+        var = np.maximum((v + m * m).mean(0) - mean * mean, 0.0)
+        out.append((mean.astype(np.float32), var.astype(np.float32)))
+    return out
 
 
 class Pipeline:
@@ -78,11 +164,14 @@ class Pipeline:
         *,
         seed: int | None = None,
         device: str | torch.device | None = None,
+        checkpoint_path: str | None = None,
     ):
         """``tokenizer``: a ``Tokenizer`` or the path of its JSON file.
         ``variables``: the JAX package's ``{"params", "batch_stats"}`` tree as
         numpy arrays; without it the weights come from a seeded init
-        (``seed``, default ``config.seed``)."""
+        (``seed``, default ``config.seed``). ``checkpoint_path``: the
+        directory of this pipeline's checkpoints, which makes it a training
+        pipeline; it restores the latest checkpoint there, if any."""
         cfg = self.config = config or Config()
         self.device = resolve_device(device)
         self.tokenizer = (load_tokenizer_from_path(tokenizer)
@@ -92,12 +181,39 @@ class Pipeline:
         self.start_token = self.tokenizer.word_index["<start>"]
         self.end_token = self.tokenizer.word_index["<end>"]
         self.dtype = getattr(torch, cfg.compute_dtype)
+        self.state: TrainState | None = None
+        if checkpoint_path is None:
+            self._use(self._initial_model(variables, seed))
+            return
+        refuse_unported_training_options(cfg)
+        self.ckpt_manager = CheckpointManager(checkpoint_path, max_to_keep=100)
+        self.smart_ckpt_saver = SmartCheckpointSaver(
+            self.ckpt_manager, epochs=cfg.epochs, min_epoch_to_break=cfg.min_epoch_to_break,
+            gap_of_dead_epoch=cfg.gap_of_dead_epoch)
+        # the reference builds the schedule with dff, not d_model
+        self.learning_rate = custom_schedule(
+            cfg.dff if cfg.schedule_uses_dff else cfg.d_model, cfg.warm_up_steps)
+        self._train_step = build_train_step_fn(self.learning_rate, seed=cfg.seed,
+                                               dropout_rate=cfg.dropout_rate)
+        self.train_loss_history: list[float] = []
+        master = self._initial_model(variables, seed).to(self.device)
+        self.state = TrainState(master, keras_adam_init(list(master.parameters())), 0)
+        restored = self.ckpt_manager.restore(self.state_tree())
+        if restored is not None:
+            self.load_state_tree(restored)
+            print("Latest checkpoint restored!!")
+        self._serve_master()
+
+    def _initial_model(self, variables: Mapping | None, seed: int | None) -> Transformer:
+        """The float32 model on the CPU with ``variables`` (a tree that does
+        not fit it raises) or the seeded init."""
+        model = self._new_model()
         if variables is not None:
-            self._load_variables(variables)
+            model.load_state_dict(from_flax(variables), strict=True)
         else:
-            model = self._new_model()
-            init_weights(model, torch.Generator().manual_seed(cfg.seed if seed is None else seed))
-            self._use(model)
+            seed = self.config.seed if seed is None else seed
+            init_weights(model, torch.Generator().manual_seed(seed))
+        return model
 
     def _new_model(self) -> Transformer:
         """The float32 model on the CPU, its weights not yet set."""
@@ -109,7 +225,8 @@ class Pipeline:
                 target_vocab_size=self.target_vocab_size, max_seq_len=self.max_seq_len,
                 num_pyramids=cfg.num_of_pyramids, baseline_index=cfg.baseline_index,
                 backbone_name=cfg.backbone, n_conv_submodule=cfg.n_conv_submodule,
-                activation=cfg.activation,
+                activation=cfg.activation, remat_encoder=cfg.remat_encoder,
+                bn_momentum=cfg.bn_momentum, compute_dtype=self.dtype,
             )
         return model.to_empty(device="cpu")
 
@@ -126,30 +243,134 @@ class Pipeline:
         self.transformer = cast_for_inference(model.eval(), self.dtype).to(self.device)
         self.packed = pack_decoder_weights(self.transformer, self.dtype)
 
-    def _load_variables(self, variables: Mapping) -> None:
-        """Serve the JAX package's ``{"params", "batch_stats"}`` tree; a tree
-        that does not fit this model raises."""
+    def _serve_master(self) -> None:
+        """Serve the current master weights: copied to the CPU, then cast,
+        moved and packed as weights given at construction are."""
         model = self._new_model()
-        model.load_state_dict(from_flax(variables), strict=True)
+        model.load_state_dict(self.state.model.state_dict())
         self._use(model)
+        self._stale = False
+
+    def _sync(self) -> None:
+        """Before captioning: serve the master weights again if they moved."""
+        if self.state is not None and self._stale:
+            self._serve_master()
 
     def load_weights(self, path: str) -> None:
-        """Serve the weights of a Flax msgpack file (the JAX package's
-        ``Pipeline.save_weights``, or this class's)."""
-        self._load_variables(read_flax_msgpack(path))
+        """Use the weights of a Flax msgpack file (the JAX package's
+        ``Pipeline.save_weights``, or this class's): serve them, and in a
+        training pipeline make them the master weights (the optimizer state
+        and step stay)."""
+        variables = read_flax_msgpack(path)
+        if self.state is None:
+            self._use(self._initial_model(variables, None))
+            return
+        self.state.model.load_state_dict(from_flax(variables), strict=True)
+        self._serve_master()
 
     def save_weights(self, path: str) -> None:
-        """Write the served weights as the Flax msgpack file that the JAX
-        package's ``Pipeline.load_weights`` reads. A pipeline that computes in
-        another dtype than float32 serves weights rounded from the float32 ones
-        it was given, which it does not keep, so it raises."""
-        if self.dtype != torch.float32:
+        """Write the weights as the Flax msgpack file that the JAX package's
+        ``Pipeline.load_weights`` reads: a training pipeline's float32 master
+        weights, else the served ones. A pipeline that serves another dtype
+        than float32 and keeps no master serves weights rounded from the
+        float32 ones it was given, so it raises."""
+        if self.state is None and self.dtype != torch.float32:
             raise ValueError(
                 f"save_weights: this pipeline serves {self.config.compute_dtype} weights "
                 "rounded from float32 ones it does not keep; save from a pipeline with "
                 "compute_dtype='float32'")
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        write_flax_msgpack(path, to_flax(self.transformer))
+        model = self.transformer if self.state is None else self.state.model
+        write_flax_msgpack(path, to_flax(model))
+
+    # ------------------------------------------------------------------
+    def state_tree(self) -> dict:
+        """The training state as the JAX ``TrainState`` tree of numpy arrays
+        (``weights.train_state_to_flax``), which the checkpoints store."""
+        st = self.state
+        opt = st.opt_state
+        return train_state_to_flax(st.model, opt.count, opt.m, opt.v, opt.vhat, st.step)
+
+    def load_state_tree(self, tree: Mapping) -> None:
+        """Make ``tree`` (``state_tree``'s layout) the training state."""
+        model = self.state.model
+        names = [name for name, _ in model.named_parameters()]
+        sd, count, m, v, vhat, step = train_state_from_flax(tree, names)
+        model.load_state_dict(sd, strict=True)
+        to_dev = lambda ts: [t.to(self.device) for t in ts]
+        self.state = TrainState(model, KerasAdamState(count, to_dev(m), to_dev(v), to_dev(vhat)),
+                                step)
+        self._stale = True
+
+    def train_step(self, img, caption_token) -> float:
+        """One optimizer step on a batch, (B, S, S, 3) uint8 or [-1, 1] float
+        images and (B, L) caption token ids; returns the loss. The loss is
+        read back, so the step has ended on the device when this returns."""
+        img = torch.as_tensor(np.asarray(img), device=self.device)
+        caption_token = torch.as_tensor(np.asarray(caption_token, np.int64), device=self.device)
+        self.state, loss = self._train_step(self.state, img, caption_token)
+        self._stale = True
+        loss = float(loss)
+        self.train_loss_history.append(loss)
+        return loss
+
+    @torch.no_grad()
+    def finalize_batch_stats(self, batches, n_batches: int | None = None) -> int:
+        """Recompute the BatchNorm running statistics as exact population
+        moments over training batches (BN re-estimation): each batch's exact
+        moments from a pass of the feature extractor in training mode at
+        momentum 0 (``ra = 0·ra + 1·batch``), combined by
+        ``_population_stats``. ``batches``: image batches or ``(image,
+        caption)`` pairs, uint8 or float; their rows are cut into chunks of
+        the first batch's size, without padding (the rows left over are not
+        used), at most ``n_batches`` chunks. Returns the chunks used; 0 (the
+        statistics untouched) when the model has no BatchNorm or the data
+        fill no chunk."""
+        model = self.state.model
+        bns = [m for m in model.modules() if isinstance(m, BatchNorm32)]
+        if not bns:
+            return 0
+        chunks = self._chunks(batches)
+        if n_batches is not None:
+            chunks = itertools.islice(chunks, n_batches)
+        per_batch, momenta = [], [bn.momentum for bn in bns]
+        try:
+            for bn in bns:
+                bn.momentum = 0.0
+            for rows in chunks:
+                model.encoder.features(torch.as_tensor(rows, device=self.device), train=True)
+                per_batch.append([(bn.running_mean.cpu().numpy(), bn.running_var.cpu().numpy())
+                                  for bn in bns])
+        finally:
+            for bn, m in zip(bns, momenta):
+                bn.momentum = m
+        if not per_batch:
+            return 0
+        for bn, (mean, var) in zip(bns, _population_stats(per_batch)):
+            bn.running_mean.copy_(torch.from_numpy(mean))
+            bn.running_var.copy_(torch.from_numpy(var))
+        self._stale = True
+        return len(per_batch)
+
+    @staticmethod
+    def _chunks(batches):
+        """The image rows of ``batches`` in equal chunks of the first batch's
+        size (the JAX package's re-chunking, on one process)."""
+        chunk, buf, buffered = None, [], 0
+        for item in batches:
+            img = np.asarray(item[0] if isinstance(item, (tuple, list)) else item)
+            if img.shape[0] == 0:
+                continue
+            if chunk is None:
+                chunk = img.shape[0]
+            buf.append(img)
+            buffered += img.shape[0]
+            while buffered >= chunk:
+                rows = np.concatenate(buf) if len(buf) > 1 else buf[0]
+                yield rows[:chunk]
+                rest = rows[chunk:]
+                buf = [rest] if rest.shape[0] else []
+                buffered = rest.shape[0]
 
     @classmethod
     def from_config(cls, cfg: Config, *, device: str | torch.device | None = None) -> "Pipeline":
@@ -190,12 +411,15 @@ class Pipeline:
         return MetricEval(self.config.datadir, self.config.datatype_val)
 
     def close(self) -> None:
-        """Nothing to release (the JAX pipeline closes its checkpoint manager)."""
+        """Close the checkpoint manager of a training pipeline."""
+        if self.state is not None:
+            self.ckpt_manager.close()
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def encode(self, images) -> torch.Tensor:
         """(B, S, S, 3) uint8 or [-1, 1] float images → (B, Lenc, d_model)."""
+        self._sync()
         images = torch.as_tensor(np.asarray(images), device=self.device)
         if self.backbone_packed is not None:
             return fused_encode(self.transformer, self.backbone_packed, images)
@@ -230,6 +454,7 @@ class Pipeline:
 
     def _predict_chunk(self, images: np.ndarray, beam_n: int):
         cfg = self.config
+        self._sync()
         # the fused decode step (the hand-written kernels on the card; their
         # plain versions on the CPU) freezes finished beams, which parity mode
         # must not; an activation the kernels do not implement takes the
@@ -263,6 +488,7 @@ class Pipeline:
         if top_p is not None:
             top_p = np.broadcast_to(np.asarray(top_p, np.float32), (n,)).copy()
         generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._sync()
         seqs, lengths = sample_decode(
             self.transformer, self.encode(images), generator,
             max_len=self.max_seq_len, start_token=self.start_token, end_token=self.end_token,
@@ -288,6 +514,7 @@ class Pipeline:
         seq = seqs[0][: lengths[0]]
         tokens = np.concatenate([[self.start_token], seq])[: self.max_seq_len]
         tar = torch.as_tensor(tokens, dtype=torch.long, device=self.device)[None, :]
+        self._sync()
         _logits, attention = self.transformer(self.encode(images), tar, create_masks(tar))
         return seq, {k: v.float().cpu().numpy() for k, v in attention.items()}
 

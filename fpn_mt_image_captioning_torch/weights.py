@@ -13,7 +13,13 @@ a nested dict of numpy arrays, so no flax is needed — into a state dict for
   * the stacks — the encoder's ``kv_proj``/``kv_bias`` and each layer's
     ``mva`` ``wq/bq/wo/bo`` — keep their names and the JAX layout.
 
-``to_flax`` is its inverse.
+``to_flax`` is its inverse. ``train_state_to_flax`` /
+``train_state_from_flax`` carry a whole training state in the JAX
+``TrainState`` layout, ``{"params", "batch_stats", "opt_state", "step"}``
+with ``opt_state`` as flax writes ``(EmptyState(), KerasAdamState(count, m,
+v, vhat))``: ``{"0": {}, "1": {"count", "m", "v", "vhat"}}``, the moments
+trees shaped like ``params`` and the counters int32 scalars. The port's
+checkpoints (``train/checkpoint.py``) store that tree.
 
 Weight files: ``read_flax_msgpack`` and ``write_flax_msgpack`` read and write
 the Flax msgpack files of the JAX package (``Pipeline.save_weights`` /
@@ -45,8 +51,8 @@ from .models.backbones.mobilenet_v2 import BatchNorm32
 from .models.layers import he_normal_
 from .models.transformer import Encoder
 
-__all__ = ["from_flax", "to_flax", "init_weights", "read_flax_msgpack", "write_flax_msgpack",
-           "MAX_CHUNK_SIZE"]
+__all__ = ["from_flax", "to_flax", "train_state_to_flax", "train_state_from_flax",
+           "init_weights", "read_flax_msgpack", "write_flax_msgpack", "MAX_CHUNK_SIZE"]
 
 _RENAME = {"scale": "weight", "embedding": "weight",
            "mean": "running_mean", "var": "running_var"}
@@ -85,9 +91,14 @@ def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
 def to_flax(model: nn.Module) -> dict:
     """The inverse of ``from_flax``: the model's weights as the JAX package's
     ``{"params", "batch_stats"}`` tree of float32 numpy arrays."""
+    return _flax_tree(model, model.state_dict().items())
+
+
+def _flax_tree(model: nn.Module, items) -> dict:
+    """``(state-dict key, tensor)`` pairs of ``model`` as a Flax-layout tree."""
     out: dict = {"params": {}, "batch_stats": {}}
     modules = dict(model.named_modules())
-    for key, t in model.state_dict().items():
+    for key, t in items:
         mod, _, name = key.rpartition(".")
         m = modules[mod]
         a = t.detach().to("cpu", torch.float32).numpy()
@@ -109,6 +120,35 @@ def to_flax(model: nn.Module) -> dict:
             node = node.setdefault(part, {})
         node[name] = np.array(a, np.float32, order="C")   # a copy, detached from the model
     return out
+
+
+def train_state_to_flax(model: nn.Module, count: int, m, v, vhat, step: int) -> dict:
+    """A training state as the JAX ``TrainState`` tree: the model's weights
+    and statistics, the Keras-Adam ``count`` and moments ``m``/``v``/``vhat``
+    (tensors in the order of ``model.named_parameters()``), and ``step``."""
+    names = [name for name, _ in model.named_parameters()]
+    tree = to_flax(model)
+    moments = {k: _flax_tree(model, zip(names, ts))["params"]
+               for k, ts in (("m", m), ("v", v), ("vhat", vhat))}
+    tree["opt_state"] = {"0": {}, "1": {"count": np.array(count, np.int32), **moments}}
+    tree["step"] = np.array(step, np.int32)
+    return tree
+
+
+def train_state_from_flax(tree: Mapping, names: list[str]):
+    """The inverse of ``train_state_to_flax``: ``(state dict, count, m, v,
+    vhat, step)``, the moments as float32 tensors in the order of ``names``
+    (the model's parameter names). A moment tree that lacks a parameter or
+    holds another raises ``ValueError``."""
+    adam = tree["opt_state"]["1"]
+    moments = []
+    for k in ("m", "v", "vhat"):
+        flat = from_flax({"params": adam[k]})
+        if set(flat) != set(names):
+            raise ValueError(f"opt_state {k}: parameters {sorted(set(flat) ^ set(names))[:3]} "
+                             "differ from the model's")
+        moments.append([flat[n] for n in names])
+    return (from_flax(tree), int(adam["count"]), *moments, int(tree["step"]))
 
 
 # ---------------------------------------------------------------------------

@@ -123,7 +123,7 @@ def test_evaluate_py_and_show_results_match_root(world, capsys):
     assert capsys.readouterr().out == want_show
     assert want_show.count("generated caption") == N_VAL
 
-    with pytest.raises(NotImplementedError, match="training is not ported"):
+    with pytest.raises(NotImplementedError, match="fpn_mt_image_captioning_torch.train"):
         pt_evaluate.main(cfg.replace(is_training=True), device="cpu")
 
 
