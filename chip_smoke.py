@@ -5,8 +5,8 @@ port builds, is right, and captions and trains on the GPU.
     python3 chip_smoke.py
 
 Phases, in the order they run, except that 14 runs between the kernel
-checks that open 13 and phase 11, and 15 last (each prints one line; any
-failure raises, so the script exits non-zero without its last line):
+checks that open 13 and phase 11, and 15 and 16 last (each prints one line;
+any failure raises, so the script exits non-zero without its last line):
 
   1. environment — the card (nvidia-smi name and power limit), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions, so float32
@@ -143,11 +143,37 @@ failure raises, so the script exits non-zero without its last line):
      routes in turns at batch 8 and 64, parity at 8, ``sample_batch`` at 64
      with and without ``top_p`` (bf16).
 
+ 15. training — the flagship's ``train_step`` at batch 10 and 64, a small
+     model's step on the card against the CPU, the ``train`` main over two
+     epochs (``phase_train_*``).
+ 16. backbones and the Keras ``.h5`` import — (a) the eight new backbones
+     (ResNet-50/101/152, VGG16/19, DenseNet-121/169/201) at the flagship's
+     widths with seeded weights (BatchNorm statistics calibrated on a seeded
+     batch): float32 C3/C4/C5 at 512², batch 2, card against the CPU route
+     for the smallest depth of each family (atol 2e-4 + rtol 1e-3), bf16
+     taps within 1.25× (+ 1e-3) of another bf16 route's relative L2 from
+     float32 (phase 5's method; the other route is ``channels_last``); then
+     ``predict_batch`` in bf16 at batch 64 with ``fused_backbone=True``
+     (eager encode: no packed backbone, ``fused_ir_block`` 0), counters reset
+     just before the timed runs and read just after, each decode kernel at
+     the steps × its launches a step; encode s, images/s, peak memory.
+     (b) ``train_step`` of ResNet-50, VGG16 and DenseNet-121 five times at
+     batch 10 on one seeded batch (loss finite and falling, step wall,
+     images/s, peak memory, idle share of a traced step), ResNet-152 and
+     DenseNet-201 once; the peak at batch 64 predicted from batch 10's, and
+     one step run where it fits. (c) the golden Keras ``.h5`` read by the
+     port's reader (no ``h5py`` there) and imported into a backbone whose
+     float32 taps hold Keras' activations (atol 2e-4 + rtol 1e-3); the
+     ``train`` main booted from it for 2 steps; a Keras-named dict of the
+     flagship imported into a flagship seeded otherwise: weights bitwise and
+     encode equal to the source's. The phase prints its seconds.
+
 Then the kernel table as one JSON line (every kernel: the decode step's, the
 backbone's and the probes'; ``launches`` from the main path's runs,
 ``evaluate_launches`` from phase 13's, ``decode_modes_launches`` from phase
-14's counted runs), the card's name and power limit, and
-``{"ok": true, "device": {...}}`` as the last line.
+14's counted runs, ``train_launches`` from phase 15's ``train`` main,
+``backbones_launches`` from phase 16 (a)'s counted runs), the card's name
+and power limit, and ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -2284,6 +2310,358 @@ def phase_train_main(fd, fb, torch, Config, Pipeline, tokenizer, workdir) -> dic
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the ResNet, VGG and DenseNet backbones; the Keras .h5 import
+# ---------------------------------------------------------------------------
+NEW_BACKBONES = ("resnet50", "resnet101", "resnet152", "vgg16", "vgg19",
+                 "densenet121", "densenet169", "densenet201")
+CARD_VS_CPU = ("resnet50", "vgg16", "densenet121")   # the smallest depth of each family
+BACKBONE_TRAIN = {"resnet50": 5, "vgg16": 5, "densenet121": 5, "resnet152": 1,
+                  "densenet201": 1}                   # steps at batch 10
+TAPS_BATCH, PREDICT_RUNS, BIG_BATCH = 2, 3, 64
+GOLDEN = Path("tests") / "golden"
+
+
+def seeded_backbone(torch, name: str, dev, seed: int):
+    """``name``'s backbone on the card (float32, eval mode): seeded weights
+    (``init_weights``; BatchNorm scales 1 + 0.1·N and biases 0.1·N), then
+    the statistics calibrated as the CPU tests calibrate theirs: a
+    training-mode pass over a seeded batch of 2 at momentum 0 (each running
+    mean the batch's, as a trained model's are of its data), each running
+    variance raised by U(0.5, 1.5), so that no channel divides by the root of
+    a variance near 0."""
+    from fpn_mt_image_captioning_torch.models.backbones import backbone
+    from fpn_mt_image_captioning_torch.models.layers import BatchNorm32
+    from fpn_mt_image_captioning_torch.weights import init_weights
+
+    net = backbone(name).to(dev)
+    init_weights(net, torch.Generator(dev).manual_seed(seed))
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    bns = [m for m in net.modules() if isinstance(m, BatchNorm32)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.weight += 0.1 * torch.randn(bn.weight.shape, generator=g, device=dev)
+            bn.bias += 0.1 * torch.randn(bn.bias.shape, generator=g, device=dev)
+            bn.momentum = 0.0
+        net(torch.rand(2, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1, train=True)
+        for bn in bns:
+            bn.momentum = 0.99
+            bn.running_var += 0.5 + torch.rand(bn.running_var.shape, generator=g, device=dev)
+    return net.eval()
+
+
+def phase_backbone_taps(torch, dev, name: str, net) -> dict:
+    """C3/C4/C5 of ``net`` at 512², batch 2. float32 (TF32 off): for the
+    smallest depth of each family, the card's taps against the CPU route's
+    on the same weights, every element within atol 2e-4 + rtol 1e-3.
+    bfloat16 (convs in bf16, BatchNorm in float32, as served): roundings
+    cascade through up to 50 ResNet blocks and 98 DenseNet layers, so, as
+    phase 5 holds the fused backbone, the taps may stray from the float32
+    ones no further (relative L2) than another bf16 route does — the same
+    module on ``channels_last`` tensors, which cuDNN runs with other
+    kernels — with a 25 % margin + 1e-3."""
+    from fpn_mt_image_captioning_torch.decode.beam_search import cast_for_inference
+
+    g = torch.Generator(dev).manual_seed(77)
+    x = torch.rand(TAPS_BATCH, 3, SIZE, SIZE, generator=g, device=dev) * 2 - 1
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    line = {}
+    with torch.no_grad():
+        f32 = net(x)
+        if name in CARD_VS_CPU:
+            t0 = time.perf_counter()
+            want = copy.deepcopy(net).cpu()(x.cpu())
+            line["cpu_s"] = time.perf_counter() - t0
+            for tap, a, b in zip(("C3", "C4", "C5"), f32, want):
+                line[f"{tap}_card_vs_cpu_max_abs_err"] = close(
+                    f"{name} {tap} float32 card vs CPU", a.cpu(), b, atol=2e-4, rtol=1e-3)
+        bf = cast_for_inference(copy.deepcopy(net), torch.bfloat16)
+        nchw = bf(x.bfloat16())
+        bf = bf.to(memory_format=torch.channels_last)
+        cl = bf(x.bfloat16().contiguous(memory_format=torch.channels_last))
+    for tap, a, b, c in zip(("C3", "C4", "C5"), nchw, cl, f32):
+        r, r_cl = rel(a, c), rel(b, c)
+        if not bool(a.isfinite().all()) or r > 1.25 * r_cl + 1e-3:
+            raise SmokeFailure(f"{name} {tap} bfloat16: {r} from float32 (channels_last {r_cl})")
+        line[f"{tap}_bf16_vs_f32"], line[f"{tap}_bf16_channels_last_vs_f32"] = r, r_cl
+    line["shapes"] = [list(t.shape) for t in f32]
+    return line
+
+
+def backbone_tree(net, base: dict) -> dict:
+    """The flagship's variables ``base`` (JAX layout) with ``net`` as the
+    backbone and the FPN's C3/C4/C5 laterals at its tap widths (seeded
+    he-normal 1×1 kernels, biases 0.1·N); every other leaf is ``base``'s."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.weights import to_flax
+
+    bb = to_flax(net)
+    rng = np.random.default_rng(sum(net.tap_channels))
+    params = dict(base["params"])
+    enc = params["encoder"] = dict(params["encoder"])
+    fe = enc["feature_extractor"] = dict(enc["feature_extractor"])
+    fpn = fe["fpn"] = dict(fe["fpn"])
+    fe["backbone"] = bb["params"]
+    for tap, c in zip(("C3", "C4", "C5"), net.tap_channels):
+        fpn[f"{tap}_reduced"] = {
+            "kernel": rng.standard_normal((1, 1, c, 256), np.float32) * np.float32(
+                math.sqrt(2.0 / c)),
+            "bias": 0.1 * rng.standard_normal(256, np.float32)}
+    stats = {"encoder": {"feature_extractor": {"backbone": bb["batch_stats"]}}} \
+        if bb["batch_stats"] else {}
+    return {"params": params, "batch_stats": stats}
+
+
+def phase_backbone_predict(fd, torch, dev, Config, Pipeline, tokenizer, name, tree) -> dict:
+    """``predict_batch`` at batch 64, bf16, the flagship's widths with
+    ``name`` as the backbone and ``fused_backbone=True``, which encodes
+    eagerly for a backbone that is not MobileNetV2 (no packed backbone):
+    a warm-up, then counters reset and ``PREDICT_RUNS`` timed runs (median
+    wall), every decode kernel at the decode steps × its launches a step,
+    ``fused_ir_block`` at 0; then as many timed encodes. Peak allocated
+    memory over the timed runs."""
+    import numpy as np
+
+    cfg = Config(backbone=name, beam_search_n=BEAM, compute_dtype="bfloat16", decode_batch=B,
+                 fused_backbone=True)
+    pipe = Pipeline(tokenizer, MAX_LEN, cfg, tree, device=dev)
+    if pipe.backbone_packed is not None:
+        raise SmokeFailure(f"{name}: fused_backbone=True packed a backbone it cannot fuse")
+    images = np.random.default_rng(2024).integers(0, 256, (B, SIZE, SIZE, 3), dtype=np.uint8)
+    pipe.predict_batch(images)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    walls, encodes = [], []
+    for _ in range(PREDICT_RUNS):
+        t0 = time.perf_counter()
+        seqs, lengths = pipe.predict_batch(images)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = read_all_counts()
+    steps = fd.decoder_logsoftmax_topk.launches
+    check_decode_counts(fd, decode_per_step(fd), steps)
+    if counts["fused_ir_block"] != 0:
+        raise SmokeFailure(f"{name}: fused_ir_block launched {counts['fused_ir_block']} times")
+    seqs_in_range(name, seqs, lengths, B)
+    for _ in range(PREDICT_RUNS):
+        t0 = time.perf_counter()
+        pipe.encode(images)
+        torch.cuda.synchronize()
+        encodes.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    wall = statistics.median(walls)
+    del pipe
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, wall_s_runs=walls, images_per_s=B / wall,
+                encode_s=statistics.median(encodes), encode_s_runs=encodes,
+                decode_steps=steps, max_memory_allocated_bytes=peak,
+                caption_tokens0=seqs[0][:lengths[0]].tolist()[:12]), counts
+
+
+def phase_backbones(fd, torch, dev, Config, Pipeline, tokenizer, base) -> tuple[dict, dict]:
+    """(a) The eight new backbones at the flagship's widths: taps
+    (``phase_backbone_taps``) and ``predict_batch`` (``phase_backbone_predict``)
+    of each. Returns each backbone's variables (for (b)) and the launch
+    counts summed over the eight counted runs."""
+    trees, totals = {}, {}
+    for i, name in enumerate(NEW_BACKBONES):
+        t0 = time.perf_counter()
+        net = seeded_backbone(torch, name, dev, seed=100 + i)
+        taps = phase_backbone_taps(torch, dev, name, net)
+        trees[name] = backbone_tree(net, base)
+        del net
+        predict, counts = phase_backbone_predict(fd, torch, dev, Config, Pipeline, tokenizer,
+                                                 name, trees[name])
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        say(f"backbone_{name}", card=card_line(), seconds=time.perf_counter() - t0,
+            taps=taps, predict_batch64=predict,
+            launches={k: n for k, n in counts.items() if k not in PROBE_TPU_KERNELS})
+    return trees, totals
+
+
+def phase_backbones_train(torch, dev, Config, Pipeline, tokenizer, trees, workdir) -> None:
+    """(b) ``train_step`` at the flagship's widths (bf16 compute, float32
+    master weights, dropout 0.1) on one fixed seeded batch of 10: ResNet-50,
+    VGG16 and DenseNet-121 five steps each (every loss finite, the last
+    below the first; median step wall, images/s, peak allocated memory, the
+    idle share over a traced step), ResNet-152 and DenseNet-201 one step
+    (its peak memory). Then batch 64, reckoned first: the peak at 64 is
+    predicted as the batch-10 peak's part that grows with the batch, × 6.4,
+    beside what does not (float32 weights, gradients and three Adam
+    moments, the bf16 served copy: 22 bytes a parameter); one step at 64 is
+    run where the prediction is below 90 % of the card's memory."""
+    import numpy as np
+
+    total = torch.cuda.get_device_properties(dev).total_memory
+    images, caps = train_batch(np.random.default_rng(10), 10, MAX_LEN)
+    big = train_batch(np.random.default_rng(64), BIG_BATCH, MAX_LEN)
+    for name, n_steps in BACKBONE_TRAIN.items():
+        t0 = time.perf_counter()
+        cfg = Config(backbone=name, batch_size=10, warm_up_steps=TRAIN_WARMUP)
+        pipe = Pipeline(tokenizer, MAX_LEN, cfg, trees[name], device=dev,
+                        checkpoint_path=str(Path(workdir) / f"train_{name}"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls = [], []
+        for _ in range(n_steps):
+            t1 = time.perf_counter()
+            losses.append(pipe.train_step(images, caps))   # reads the loss back: synchronised
+            walls.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in losses):
+            raise SmokeFailure(f"train {name}: losses {losses}")
+        line = dict(steps=n_steps, losses=losses, step_s_runs=walls,
+                    max_memory_allocated_bytes=peak)
+        if n_steps > 1:
+            if not losses[-1] < losses[0]:
+                raise SmokeFailure(f"train {name}: the loss does not fall: {losses}")
+            wall = statistics.median(walls)
+            trace = profile_run(torch, lambda: pipe.train_step(images, caps))
+            line.update(step_s=wall, images_per_s=10 / wall, trace_wall_ms=trace["wall_ms"],
+                        device_busy_ms=trace["device_busy_ms"],
+                        device_idle_share=trace["device_idle_share"], trace_top=trace["top"][:5])
+        n_params = sum(p.numel() for p in pipe.state.model.parameters())
+        fixed = 22 * n_params
+        predicted = fixed + (peak - fixed) * BIG_BATCH / 10
+        line.update(parameters=n_params, predicted_batch64_bytes=predicted,
+                    card_memory_bytes=total)
+        if predicted < 0.9 * total:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            loss64 = pipe.train_step(*big)
+            line.update(batch64_step_s=time.perf_counter() - t1, batch64_loss=loss64,
+                        batch64_max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            if not math.isfinite(loss64):
+                raise SmokeFailure(f"train {name} batch 64: loss {loss64}")
+        line["seconds"] = time.perf_counter() - t0
+        del pipe
+        torch.cuda.empty_cache()
+        say(f"train_{name}", card=card_line(), batch=10, warm_up_steps=TRAIN_WARMUP, **line)
+
+
+def phase_h5_import(torch, dev, Config, Pipeline, tokenizer, base, workdir) -> None:
+    """(c) The Keras ``.h5`` import, with no ``h5py`` in play: the golden
+    Keras MobileNetV2 file (alpha 0.35) read by the port's own reader and
+    imported into a backbone on the card, whose float32 C3/C4/C5 must hold
+    Keras' own activations (``mobilenet_v2_a035_golden.npz``) at the JAX
+    package's bar, atol 2e-4 + rtol 1e-3; the ``train`` main booted from the
+    file (``retinanet_weight_path``, mobilenet224_0.35 at the flagship's
+    other widths) for 2 steps, printing the import's report, every loss
+    finite; and a Keras-named in-memory dict of the flagship's backbone, FPN
+    and head trunks imported into a flagship whose those parts were seeded
+    otherwise: the weights then equal the source's, bitwise, and so does
+    the float32 encode of 8 images."""
+    import contextlib
+    import importlib.util
+
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import MobileNetV2Backbone
+    from fpn_mt_image_captioning_torch.data.tokenizer import store_tokenizer_to_path
+    from fpn_mt_image_captioning_torch.train.__main__ import main as train_main
+    from fpn_mt_image_captioning_torch.utils.weight_import import (
+        import_retinanet_weights, load_keras_h5, retinanet_keras_layers)
+    from fpn_mt_image_captioning_torch.weights import from_flax, to_flax
+
+    repo = Path(__file__).resolve().parent
+    h5, golden = repo / GOLDEN / "mobilenet_v2_a035.h5", np.load(
+        repo / GOLDEN / "mobilenet_v2_a035_golden.npz")
+    t0 = time.perf_counter()
+    layers = load_keras_h5(h5)
+    read_s = time.perf_counter() - t0
+    net = MobileNetV2Backbone(alpha=float(golden["alpha"]))
+    bb = to_flax(net)
+    wrap = lambda t: {"encoder": {"feature_extractor": {"backbone": t, "fpn": {}}}}
+    imported, report = import_retinanet_weights(
+        {"params": wrap(bb["params"]), "batch_stats": wrap(bb["batch_stats"])}, layers)
+    fe = {c: imported[c]["encoder"]["feature_extractor"]["backbone"] for c in imported}
+    net.load_state_dict(from_flax(fe), strict=True)
+    net = net.to(dev).eval()
+    with torch.no_grad():
+        taps = net(torch.as_tensor(golden["x"], device=dev).permute(0, 3, 1, 2))
+    errs = {}
+    for tap, t in zip(("C3", "C4", "C5"), taps):
+        errs[tap] = close(f"golden .h5 {tap}", t.permute(0, 2, 3, 1).cpu(),
+                          torch.as_tensor(golden[tap]), atol=2e-4, rtol=1e-3)
+
+    root = Path(workdir) / "h5_boot"
+    datadir, _ = write_val_split(root / "data", tokenizer, 20, "train2017", first_id=7000,
+                                 seed=51)
+    write_val_split(root / "data", tokenizer, 2, seed=53)
+    store_tokenizer_to_path(tokenizer, root / "tokenizer.json")
+    cfg = Config(datadir=datadir, epochs=1, batch_size=10, n_epoch_to_evaluate=2,
+                 n_val_dataset=2, warm_up_steps=TRAIN_WARMUP, backbone="mobilenet224_0.35",
+                 retinanet_weight_path=str(h5), tokenizer_filename=str(root / "tokenizer.json"),
+                 additional_filename=str(root / "info.json"),
+                 transformer_checkpoint_path=str(root / "ckpt"),
+                 transformer_weight_path=str(root / "weights.msgpack"),
+                 result_dir=str(root / "results"))
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), contextlib.redirect_stdout(io.StringIO()) as printed, \
+            contextlib.redirect_stderr(io.StringIO()):
+        trained = train_main(cfg)
+    main_s = time.perf_counter() - t0
+    line = f"Loaded pretrained retinanet weights: {report!r}"
+    losses = list(trained.train_loss_history)
+    if line not in printed.getvalue():
+        raise SmokeFailure("the train main did not boot from the .h5: "
+                           f"{printed.getvalue()[-1500:]}")
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"the train main from the .h5: losses {losses}")
+    del trained
+
+    rng = np.random.default_rng(61)
+    source = base
+    reached = ("backbone", "fpn", "regression_trunk", "classification_trunk")
+
+    def reseeded(tree):
+        return {k: reseeded(v) if isinstance(v, dict) else
+                rng.standard_normal(v.shape, np.float32) * np.float32(0.05)
+                for k, v in tree.items()}
+
+    target = {c: dict(source[c]) for c in source}
+    for c in target:
+        enc = target[c]["encoder"] = dict(target[c]["encoder"])
+        fe_t = enc["feature_extractor"] = dict(enc["feature_extractor"])
+        for part in reached:
+            if part in fe_t:
+                fe_t[part] = reseeded(fe_t[part])
+    cfg32 = Config(compute_dtype="float32")
+    want = Pipeline(tokenizer, MAX_LEN, cfg32, source, device=dev)
+    pipe = Pipeline(tokenizer, MAX_LEN, cfg32, target, device=dev)
+    flagship_report = pipe.load_pretrained_retinanet(retinanet_keras_layers(source))
+    if flagship_report.missed:
+        raise SmokeFailure(f"flagship import missed {flagship_report.missed[:5]}")
+    got_sd, want_sd = pipe.transformer.state_dict(), want.transformer.state_dict()
+    if any(not torch.equal(got_sd[k], t) for k, t in want_sd.items()):
+        raise SmokeFailure("the imported flagship's weights differ from the source's")
+    pixels = np.random.default_rng(62).integers(0, 256, (8, SIZE, SIZE, 3), dtype=np.uint8)
+    encode_err = (pipe.encode(pixels) - want.encode(pixels)).abs().max().item()
+    if encode_err != 0.0:
+        raise SmokeFailure(f"the imported flagship's encode differs by {encode_err}")
+    del pipe, want
+    torch.cuda.empty_cache()
+    say("h5_import", card=card_line(), h5py_importable=importlib.util.find_spec("h5py")
+        is not None, golden_read_s=read_s, golden_layers=len(layers),
+        golden_report=repr(report), golden_max_abs_err=errs, train_main_s=main_s,
+        train_main_losses=losses, flagship_report=repr(flagship_report),
+        flagship_weights_bitwise=True, flagship_encode_max_abs_err=encode_err)
+
+
+def phase_16(fd, torch, dev, Config, Pipeline, tokenizer, base, workdir) -> dict:
+    t0 = time.perf_counter()
+    trees, counts = phase_backbones(fd, torch, dev, Config, Pipeline, tokenizer, base)
+    phase_backbones_train(torch, dev, Config, Pipeline, tokenizer, trees, workdir)
+    del trees
+    phase_h5_import(torch, dev, Config, Pipeline, tokenizer, base, workdir)
+    say("phase16", seconds=time.perf_counter() - t0)
+    return counts
+
+
 def greedy_of(pipe, images):
     """``greedy_decode`` of ``images`` on ``pipe``'s weights, as numpy."""
     from fpn_mt_image_captioning_torch.decode.beam_search import greedy_decode
@@ -2378,6 +2756,9 @@ def main() -> int:
         phase_train_flagship(torch, dev, Config, Pipeline, tokenizer, workdir)
         phase_train_card_vs_cpu(torch, dev, Config, Pipeline, tokenizer, workdir)
         train_counts = phase_train_main(fd, fb, torch, Config, Pipeline, tokenizer, workdir)
+        torch.cuda.empty_cache()
+        backbones_counts = phase_16(fd, torch, dev, Config, Pipeline, tokenizer, variables,
+                                    workdir)
     eval_counts["fused_ir_block"] = fused_eval_counts["fused_ir_block"]
 
     counts.update(probe_counts)
@@ -2398,7 +2779,8 @@ def main() -> int:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "evaluate_launches": eval_counts[k.__name__],
                         "decode_modes_launches": modes_counts[k.__name__],
-                        "train_launches": train_counts[k.__name__]})
+                        "train_launches": train_counts[k.__name__],
+                        "backbones_launches": backbones_counts[k.__name__]})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

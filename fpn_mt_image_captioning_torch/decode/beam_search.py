@@ -91,7 +91,7 @@ def cast_for_inference(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.M
     """Cast the weights to the compute dtype once, in place — except the
     LayerNorm and BatchNorm parameters and statistics, which stay float32 (the
     norms compute in float32)."""
-    from ..models.backbones.mobilenet_v2 import BatchNorm32
+    from ..models.layers import BatchNorm32
 
     norms = (torch.nn.LayerNorm, BatchNorm32)
     for m in model.modules():

@@ -32,7 +32,10 @@ class MultiViewAttention(nn.Module):
     The JAX module folds the K/V projections into the query side (a TPU op
     count trick) and pads the small views into one stacked group; this port
     projects K/V directly and attends per view unpadded, which computes the
-    same function. The weights are cast to the baseline's dtype inside the
+    same function. A view without keys (the empty pyramid level of an input
+    below 256²) gives the value bias as its context, as there: the JAX
+    module's padded softmax weighs the zero padding uniformly, so its
+    context is ``0·Wv + bv``. The weights are cast to the baseline's dtype inside the
     op. While training, each view's output is dropped out after ``wo``/``bo``
     and before the sum, as the JAX module drops its stacked per-view
     outputs."""
@@ -63,6 +66,10 @@ class MultiViewAttention(nn.Module):
         kv_w, kv_b = kv_w.to(dt), kv_b.to(dt)
         out = 0
         for vi, x in enumerate(sources):
+            if x.shape[1] == 0:
+                ctx = kv_b[vi, d:].expand(b, lq, d)
+                out = out + dropout(ctx @ wo[vi] + bo[vi], drop, f"{site}.view_{vi}")
+                continue
             q = (baseline @ wq[vi] + bq[vi]).reshape(b, lq, h, dh)
             kv = x @ kv_w[vi] + kv_b[vi]                               # (B, Lv, 2d)
             k = kv[..., :d].reshape(b, -1, h, dh)

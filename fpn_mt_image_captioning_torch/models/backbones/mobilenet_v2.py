@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import SameConv2d
+from ..layers import BatchNorm32, SameConv2d
 
 __all__ = ["MobileNetV2Backbone", "make_divisible", "BatchNorm32"]
 
@@ -40,44 +40,6 @@ def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> 
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
-
-
-class BatchNorm32(nn.Module):
-    """BatchNorm over NCHW channels, computed in float32 whatever the input
-    dtype (Flax promotes to the float32 statistics the same way); the result
-    comes back in the input's dtype.
-
-    Inference normalizes with the running statistics. Training follows Flax
-    0.12's ``_compute_stats``: float32 batch moments over (N, H, W), ``var =
-    E[x²] − E[x]²`` clamped at 0 (``use_fast_variance``), that biased
-    variance both to normalize and in the running update ``ra = m·ra +
-    (1 − m)·batch`` with ``m = momentum`` (Keras' convention, the opposite of
-    ``F.batch_norm``'s, which also keeps an unbiased running variance)."""
-
-    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.999):
-        super().__init__()
-        self.eps, self.momentum = eps, momentum
-        self.weight = nn.Parameter(torch.ones(c))
-        self.bias = nn.Parameter(torch.zeros(c))
-        self.register_buffer("running_mean", torch.zeros(c))
-        self.register_buffer("running_var", torch.ones(c))
-
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
-            return F.batch_norm(
-                x.float(), self.running_mean.float(), self.running_var.float(),
-                self.weight.float(), self.bias.float(), False, 0.0, self.eps,
-            ).to(x.dtype)
-        x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
 
 
 class _ConvBN(nn.Module):

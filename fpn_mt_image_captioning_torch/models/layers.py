@@ -1,10 +1,13 @@
 """Shared layer utilities: image normalization, activations, the float32
-LayerNorm, the dense layer, TF-"SAME" convolutions, nearest upsampling, max
-pooling and training-mode dropout.
+LayerNorm and BatchNorm, the dense layer, TF-"SAME" convolutions, nearest
+upsampling, max and average pooling and training-mode dropout.
 
 Port of ``fpn_mt_image_captioning_tpu/models/layers.py``. The vision stack of
 the port runs in PyTorch's NCHW layout, so ``upsample_like`` and
-``max_pool_2x`` take NCHW tensors where the JAX functions take NHWC.
+``max_pool_2x`` take NCHW tensors where the JAX functions take NHWC. The
+pools of the ResNet, VGG and DenseNet backbones (Flax ``nn.max_pool`` /
+``nn.avg_pool`` inline in the JAX modules) are ``max_pool_3x3_same`` and
+``avg_pool_2x`` here.
 
 Mixed precision as Flax's ``dtype=`` does it: ``Dense`` and ``SameConv2d``
 cast their weights to the dtype of their input inside the op, so float32
@@ -26,10 +29,13 @@ __all__ = [
     "normalize_images",
     "resolve_activation",
     "LayerNorm32",
+    "BatchNorm32",
     "Dense",
     "SameConv2d",
     "upsample_like",
     "max_pool_2x",
+    "avg_pool_2x",
+    "max_pool_3x3_same",
     "Dropout",
     "dropout",
 ]
@@ -71,6 +77,45 @@ class LayerNorm32(nn.LayerNorm):
             x.float(), self.normalized_shape, self.weight.float(),
             self.bias.float(), self.eps,
         ).to(x.dtype)
+
+
+class BatchNorm32(nn.Module):
+    """BatchNorm over NCHW channels, computed in float32 whatever the input
+    dtype (Flax promotes to the float32 statistics the same way); the result
+    comes back in the input's dtype. ``eps`` is the backbone's: Keras
+    MobileNetV2's 1e-3, ResNet's and DenseNet's 1.001e-5.
+
+    Inference normalizes with the running statistics. Training follows Flax
+    0.12's ``_compute_stats``: float32 batch moments over (N, H, W), ``var =
+    E[x²] − E[x]²`` clamped at 0 (``use_fast_variance``), that biased
+    variance both to normalize and in the running update ``ra = m·ra +
+    (1 − m)·batch`` with ``m = momentum`` (Keras' convention, the opposite of
+    ``F.batch_norm``'s, which also keeps an unbiased running variance)."""
+
+    def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.999):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(
+                x.float(), self.running_mean.float(), self.running_var.float(),
+                self.weight.float(), self.bias.float(), False, 0.0, self.eps,
+            ).to(x.dtype)
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class Dense(nn.Linear):
@@ -120,13 +165,36 @@ def upsample_like(source: torch.Tensor, target_hw: tuple[int, int]) -> torch.Ten
     return F.interpolate(source, size=(th, tw), mode="nearest-exact")
 
 
+def _pool_2x(x: torch.Tensor, pool: Callable) -> torch.Tensor:
+    if x.shape[2] < 2 or x.shape[3] < 2:
+        return x.new_empty((*x.shape[:2], x.shape[2] // 2, x.shape[3] // 2))
+    return pool(x, kernel_size=2, stride=2)
+
+
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """2×2/stride-2 max pool, VALID padding (Keras MaxPooling2D default). An
     extent below 2 gives the empty (N, C, H//2, W//2), as Flax's
     ``nn.max_pool`` does; ``F.max_pool2d`` refuses it."""
-    if x.shape[2] < 2 or x.shape[3] < 2:
-        return x.new_empty((*x.shape[:2], x.shape[2] // 2, x.shape[3] // 2))
-    return F.max_pool2d(x, kernel_size=2, stride=2)
+    return _pool_2x(x, F.max_pool2d)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2×2/stride-2 average pool, VALID padding (Flax ``nn.avg_pool``'s
+    default: DenseNet's transitions); below 2, the empty map as
+    ``max_pool_2x``."""
+    return _pool_2x(x, F.avg_pool2d)
+
+
+def max_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """3×3/stride-2 max pool with TF/XLA "SAME" padding (the ResNet and
+    DenseNet stems): Flax pads −inf, 0 before and 1 after on an even extent.
+    ``F.max_pool2d(padding=1)`` would pad both sides and shift every window,
+    so the pad is explicit, as in ``SameConv2d``. An empty extent stays empty."""
+    h, w = x.shape[2:]
+    if h == 0 or w == 0:
+        return x.new_empty((*x.shape[:2], -(-h // 2), -(-w // 2)))
+    (ht, hb), (wl, wr) = _same_pads(h, 3, 2), _same_pads(w, 3, 2)
+    return F.max_pool2d(F.pad(x, (wl, wr, ht, hb), value=float("-inf")), 3, 2)
 
 
 def he_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

@@ -21,9 +21,11 @@ the best CIDEr saved (and warns when none was) and writes the float32
 weights to ``transformer_weight_path`` as Flax msgpack, which the JAX
 package's ``Pipeline.load_weights`` reads.
 
-Before any step it raises for what is not ported: ``mesh.enabled``,
-``retinanet_weight_path``, ``export_artifact_dir``, ``profile_dir``, and a
-checkpoint directory of Orbax checkpoints. ``--is_training=false`` runs the
+Without a checkpoint to restore, the pipeline boots its feature extractor
+from the Keras ``.h5`` file ``retinanet_weight_path`` where one is given (a
+missing file raises ``OSError`` before any step). Before any step it raises
+for what is not ported: ``mesh.enabled``, ``export_artifact_dir``,
+``profile_dir``, and a checkpoint directory of Orbax checkpoints. ``--is_training=false`` runs the
 evaluation of ``fpn_mt_image_captioning_torch.evaluate``.
 """
 

@@ -25,13 +25,17 @@ per-variable clipping, AMSGrad, BatchNorm statistics);
 ``state_tree``/``load_state_tree`` carry the state in the JAX ``TrainState``
 layout. Captioning serves a cast and packed copy of the master weights,
 made again from the current ones after the master changes. Orbax
-checkpoints, the Keras ``.h5`` import, the mesh and the multi-device paths
-are not ported: asking a training pipeline for them raises.
+checkpoints, the mesh and the multi-device paths are not ported: asking a
+training pipeline for them raises.
 
 Weights come from the JAX package (its variables tree as numpy arrays, or the
 Flax msgpack file its ``Pipeline.save_weights`` writes: ``load_weights``, and
 ``from_config`` where ``Config.transformer_weight_path`` exists) or from a
-seeded init. With ``Config.compute_dtype`` bfloat16 the weights the card runs
+seeded init. Without those weights (or a checkpoint to restore), a pipeline
+boots as the JAX package does: the seeded init with the Keras RetinaNet
+``.h5`` file ``Config.retinanet_weight_path`` imported into its feature
+extractor where one is given (``load_pretrained_retinanet``, read by the
+port's own HDF5 reader). With ``Config.compute_dtype`` bfloat16 the weights the card runs
 are cast once; LayerNorm, BatchNorm, softmax and beam scores stay float32.
 ``save_weights`` writes the served weights, so it needs a float32 pipeline,
 or the float32 master weights of a training pipeline.
@@ -58,13 +62,13 @@ from ..data.dataset import load_max_seq_len
 from ..data.metrics import MetricEval
 from ..data.tokenizer import Tokenizer, load_tokenizer_from_path
 from ..decode.beam_search import beam_search, cast_for_inference, sample_decode
-from ..models.backbones.mobilenet_v2 import BatchNorm32
-from ..models.layers import Dropout
+from ..models.layers import BatchNorm32, Dropout
 from ..models.positional import create_masks
 from ..models.transformer import Transformer
 from ..ops.fused_backbone import (fused_encode, pack_backbone_weights, packed_to,
                                   supports_fused_backbone)
 from ..ops.fused_decoder import FUSED_ACTIVATIONS, pack_decoder_weights
+from ..utils.weight_import import ImportReport, import_retinanet_weights
 from ..weights import (from_flax, init_weights, read_flax_msgpack, to_flax,
                        train_state_from_flax, train_state_to_flax, write_flax_msgpack)
 from .checkpoint import CheckpointManager, SmartCheckpointSaver
@@ -94,10 +98,6 @@ def refuse_unported_training_options(cfg: Config) -> None:
     if cfg.mesh.enabled:
         raise NotImplementedError("mesh.enabled: training over a device mesh is not ported "
                                   "(ROADMAP A.9)")
-    if cfg.retinanet_weight_path:
-        raise NotImplementedError(
-            f"retinanet_weight_path={cfg.retinanet_weight_path!r}: importing the Keras "
-            "RetinaNet .h5 weights needs an HDF5 reader and is not ported (ROADMAP A.7)")
     if cfg.export_artifact_dir:
         raise NotImplementedError(f"export_artifact_dir={cfg.export_artifact_dir!r}: the "
                                   "serving-artifact export is not ported (ROADMAP A.10)")
@@ -169,7 +169,9 @@ class Pipeline:
         """``tokenizer``: a ``Tokenizer`` or the path of its JSON file.
         ``variables``: the JAX package's ``{"params", "batch_stats"}`` tree as
         numpy arrays; without it the weights come from a seeded init
-        (``seed``, default ``config.seed``). ``checkpoint_path``: the
+        (``seed``, default ``config.seed``), with the Keras ``.h5`` of
+        ``config.retinanet_weight_path`` imported where one is given, as the
+        JAX package boots. ``checkpoint_path``: the
         directory of this pipeline's checkpoints, which makes it a training
         pipeline; it restores the latest checkpoint there, if any."""
         cfg = self.config = config or Config()
@@ -183,7 +185,10 @@ class Pipeline:
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.state: TrainState | None = None
         if checkpoint_path is None:
-            self._use(self._initial_model(variables, seed))
+            model = self._initial_model(variables, seed)
+            if variables is None and cfg.retinanet_weight_path:
+                self._boot_from_retinanet(model)
+            self._use(model)
             return
         refuse_unported_training_options(cfg)
         self.ckpt_manager = CheckpointManager(checkpoint_path, max_to_keep=100)
@@ -202,6 +207,8 @@ class Pipeline:
         if restored is not None:
             self.load_state_tree(restored)
             print("Latest checkpoint restored!!")
+        elif cfg.retinanet_weight_path:
+            self._boot_from_retinanet(self.state.model)
         self._serve_master()
 
     def _initial_model(self, variables: Mapping | None, seed: int | None) -> Transformer:
@@ -267,6 +274,36 @@ class Pipeline:
             return
         self.state.model.load_state_dict(from_flax(variables), strict=True)
         self._serve_master()
+
+    def _import_retinanet(self, model: Transformer, h5_path) -> ImportReport:
+        variables, report = import_retinanet_weights(
+            to_flax(model), h5_path, n_conv_submodule=self.config.n_conv_submodule)
+        model.load_state_dict(from_flax(variables), strict=True)
+        return report
+
+    def _boot_from_retinanet(self, model: Transformer) -> None:
+        """The JAX package's boot: the seeded (or master) float32 ``model``
+        with ``Config.retinanet_weight_path`` imported, the report printed."""
+        report = self._import_retinanet(model, self.config.retinanet_weight_path)
+        print(f"Loaded pretrained retinanet weights: {report!r}")
+
+    def load_pretrained_retinanet(self, h5_path) -> ImportReport:
+        """Import a Keras MobileNetV2-RetinaNet ``.h5`` (the reference's
+        pretrained COCO detector; a path, or a ``{layer: {weight: array}}``
+        dict already loaded) into the feature extractor: the backbone, FPN
+        and head trunks it matches (``utils.weight_import``); the rest keeps
+        its weights. A training pipeline imports into its float32 master
+        weights; an inference one into the weights it serves, which are then
+        cast, moved and packed again. Returns the import report; a missing
+        file raises ``OSError``."""
+        if self.state is not None:
+            report = self._import_retinanet(self.state.model, h5_path)
+            self._stale = True
+            return report
+        model = self._initial_model(to_flax(self.transformer), None)
+        report = self._import_retinanet(model, h5_path)
+        self._use(model)
+        return report
 
     def save_weights(self, path: str) -> None:
         """Write the weights as the Flax msgpack file that the JAX package's
@@ -379,11 +416,12 @@ class Pipeline:
         ``cfg.additional_filename``, and the weights of the Flax msgpack file
         ``cfg.transformer_weight_path`` where it exists (root ``train.py``
         writes it at the end of training). Without it the JAX package restores
-        the latest Orbax checkpoint under ``cfg.transformer_checkpoint_path``,
-        or boots from ``cfg.retinanet_weight_path``; reading either is not
-        ported, so where one exists this raises instead of serving seeded
-        weights in its place. With neither, the weights are the seeded init,
-        as there."""
+        the latest Orbax checkpoint under ``cfg.transformer_checkpoint_path``;
+        reading one is not ported, so where one exists this raises instead of
+        serving seeded weights in its place. Else, as there, the seeded init
+        with the Keras RetinaNet ``.h5`` weights of
+        ``cfg.retinanet_weight_path`` imported where it is given (a missing
+        file raises ``OSError``), or the seeded init alone."""
         variables = None
         if os.path.isfile(cfg.transformer_weight_path):
             variables = read_flax_msgpack(cfg.transformer_weight_path)
@@ -397,10 +435,6 @@ class Pipeline:
                     "Pipeline.save_weights (train.py writes cfg.transformer_weight_path at "
                     f"the end of training; no file at {cfg.transformer_weight_path!r}) and "
                     "pass --transformer_weight_path=PATH")
-            if cfg.retinanet_weight_path:
-                raise NotImplementedError(
-                    f"retinanet_weight_path={cfg.retinanet_weight_path!r}: importing Keras "
-                    "RetinaNet weights is not ported yet")
         return cls(cfg.tokenizer_filename, load_max_seq_len(cfg.additional_filename), cfg,
                    variables, device=device)
 

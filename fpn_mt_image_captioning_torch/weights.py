@@ -47,8 +47,7 @@ import torch
 from torch import nn
 
 from .models.attention import MultiViewAttention
-from .models.backbones.mobilenet_v2 import BatchNorm32
-from .models.layers import he_normal_
+from .models.layers import BatchNorm32, he_normal_
 from .models.transformer import Encoder
 
 __all__ = ["from_flax", "to_flax", "train_state_to_flax", "train_state_from_flax",

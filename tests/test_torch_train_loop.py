@@ -385,9 +385,11 @@ UNPORTED = {
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypatch, option):
     """Each option the port does not have raises ``NotImplementedError``
-    before any train step runs: the mesh (A.9), the Keras ``.h5`` import
-    (A.7), the serving export and the step tracer (A.10), and a checkpoint
-    directory of Orbax checkpoints (A.2)."""
+    before any train step runs: the mesh (A.9), the serving export and the
+    step tracer (A.10), and a checkpoint directory of Orbax checkpoints
+    (A.2). The Keras ``.h5`` boot is ported: a ``retinanet_weight_path``
+    with no file there raises ``OSError`` before the first step, as the JAX
+    package's h5py does (the boot from a file: tests/test_torch_hdf5.py)."""
     monkeypatch.chdir(tmp_path)
     _, cfg = both_configs(tmp_path, world["datadir"])
     kw = UNPORTED[option]
@@ -395,7 +397,12 @@ def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypat
         orbax_checkpoint(tmp_path / "ckpt")
     steps = []
     monkeypatch.setattr(Pipeline, "train_step", lambda *a: steps.append(a))
-    with pytest.raises(NotImplementedError, match="A.2" if option == "orbax" else option[:4]):
+    if option == "retinanet_weight_path":
+        raised = pytest.raises(OSError)
+    else:
+        raised = pytest.raises(NotImplementedError,
+                               match="A.2" if option == "orbax" else option[:4])
+    with raised:
         train_main(cfg.replace(**kw), device="cpu")
     assert steps == []
     shutil.rmtree(tmp_path / "ckpt", ignore_errors=True)
