@@ -5,8 +5,9 @@ port builds, is right, and captions and trains on the GPU.
     python3 chip_smoke.py
 
 Phases, in the order they run, except that 14 runs between the kernel
-checks that open 13 and phase 11, and 15 and 16 last (each prints one line;
-any failure raises, so the script exits non-zero without its last line):
+checks that open 13 and phase 11, and 15, 16 and 17 last (each prints one
+line; any failure raises, so the script exits non-zero without its last
+line):
 
   1. environment — the card (nvidia-smi name and power limit), torch and CUDA
      versions; TF32 is switched off for matmuls and convolutions, so float32
@@ -168,12 +169,43 @@ any failure raises, so the script exits non-zero without its last line):
      flagship imported into a flagship seeded otherwise: weights bitwise and
      encode equal to the source's. The phase prints its seconds.
 
+ 17. serving artifact (``fpn_mt_image_captioning_torch/export.py``), last:
+     (a) the flagship's beam programs exported at ``decode_batch`` 16 (128
+     decode rows; each decode kernel's operator 60 × its launches a step in
+     the graph, no launch while exporting) and loaded; a request of 61
+     uint8 images (four chunks, the last padded) bitwise equal to
+     ``Pipeline.predict_batch`` chunked alike, the captions equal, each
+     decode kernel at 60 × 4 × its launches a step (the trip count is
+     fixed), ``fused_ir_block`` 0; the float program equal to the uint8 one
+     on the images normalized on the host through the card's own byte
+     table; (b) the four sampling programs, exported at the flagship's
+     widths cut to 1+1 layers and 16 steps (a sampling program inlines the
+     non-fused step a layer and a step: depth is its export and load
+     cost), uint8 and float, with and
+     without ``top_p``, each equal to ``Pipeline.sample_batch`` on a chunk
+     of 16 (seed 7, per-row temperature); (c) a fresh process that loads
+     the artifact and captions 16 images as (a) did, without importing the
+     model module; (d) ``caption.main`` over 20 PNGs and the server (8
+     concurrent requests) on the artifact: the captions of (a); the
+     artifact against the pipeline in turns at 16 and 64 images (medians
+     of 5, the steps of each call), one traced run of each (device busy,
+     idle share, copy kernels); (e, f) the ``train`` main over phase 15's
+     corpus at 2+2 layers with the fused backbone, for 2 steps, with
+     ``profile_dir`` (the trace holds CUDA kernel events) and
+     ``export_artifact_dir``: a fused-backbone artifact with beam programs
+     only, which loads and equals the trained pipeline's ``predict_batch``
+     over two chunks, ``fused_ir_block`` at 17 launches a chunk and each
+     decode kernel at the corpus' max_seq_len × 2 × its launches a step. Each step prints its line with the
+     card's name and power limit; export, load seconds, nodes and bytes of
+     every program.
+
 Then the kernel table as one JSON line (every kernel: the decode step's, the
 backbone's and the probes'; ``launches`` from the main path's runs,
 ``evaluate_launches`` from phase 13's, ``decode_modes_launches`` from phase
 14's counted runs, ``train_launches`` from phase 15's ``train`` main,
-``backbones_launches`` from phase 16 (a)'s counted runs), the card's name
-and power limit, and ``{"ok": true, "device": {...}}`` as the last line.
+``backbones_launches`` from phase 16 (a)'s counted runs,
+``artifact_launches`` from phase 17 (a)'s request), the card's name and
+power limit, and ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 from __future__ import annotations
@@ -1250,16 +1282,16 @@ def perturbed(variables: dict) -> dict:
     return variables
 
 
-def make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, **cfg_kw):
+def make_pipeline(torch, dev, fd, fb, Config, Pipeline, tokenizer, max_len=MAX_LEN, **cfg_kw):
     """The flagship pipeline with seeded weights whose BatchNorm statistics
     and biases are perturbed (they init to 0/1), decoder (and fused backbone)
     weights packed again after the perturbation, which is made on the card's
-    copy after the cast."""
+    copy after the cast; ``max_len`` tokens a caption."""
     from fpn_mt_image_captioning_torch.models.backbones.mobilenet_v2 import BatchNorm32
 
     cfg = Config(**{"beam_search_n": BEAM, "compute_dtype": "bfloat16", "decode_batch": B,
                     **cfg_kw})
-    pipe = Pipeline(tokenizer, MAX_LEN, cfg, seed=0, device=dev)
+    pipe = Pipeline(tokenizer, max_len, cfg, seed=0, device=dev)
     with torch.no_grad():
         g = torch.Generator().manual_seed(7)
         for m in pipe.transformer.modules():
@@ -2662,6 +2694,333 @@ def phase_16(fd, torch, dev, Config, Pipeline, tokenizer, base, workdir) -> dict
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving artifact
+# ---------------------------------------------------------------------------
+ART_BATCH, ART_REQUEST, ART_SEED = 16, 61, 7   # decode_batch's default; 4 chunks, the last padded
+ART_TRAIN_LAYERS, ART_SAMPLE_LAYERS, ART_SAMPLE_LEN = 2, 1, 16
+SUBPROCESS_CAPTIONS = r"""
+import json, sys
+import numpy as np
+from fpn_mt_image_captioning_torch.export import load_serving
+served = load_serving(sys.argv[1])
+captions = served.caption(np.load(sys.argv[2]))
+print(json.dumps({"captions": captions, "load_seconds": served.load_seconds,
+                  "transformer_imported":
+                      "fpn_mt_image_captioning_torch.models.transformer" in sys.modules}))
+"""
+
+
+def card_normalized(torch, images, dev):
+    """uint8 images normalized on the host to the values the device's own
+    normalize gives each of the 256 bytes (looked up): a CUDA division by a
+    scalar multiplies by the scalar's float32 reciprocal, an ulp away from
+    x / 127.5 at 111 of the 256 values."""
+    from fpn_mt_image_captioning_torch.models.layers import normalize_images
+
+    table = normalize_images(torch.arange(256, dtype=torch.uint8, device=dev)).cpu().numpy()
+    return table[images]
+
+
+def equal_outputs(name, got, want) -> None:
+    import numpy as np
+
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        bad = int((np.asarray(got[1]) != np.asarray(want[1])).sum())
+        raise SmokeFailure(f"{name}: tokens or lengths differ ({bad} lengths differ)")
+
+
+def artifact_counts(fd, chunks: int, backbone_blocks: int) -> dict:
+    """Check the launches of an artifact's beam run: each decode kernel at
+    ``MAX_LEN`` steps × ``chunks`` × its launches a step, the fused backbone
+    kernel at ``backbone_blocks`` × ``chunks``; the counts."""
+    counts = read_all_counts()
+    check_decode_counts(fd, decode_per_step(fd), MAX_LEN * chunks)
+    if counts["fused_ir_block"] != backbone_blocks * chunks:
+        raise SmokeFailure(f"artifact: {counts['fused_ir_block']} backbone launches for "
+                           f"{chunks} chunks × {backbone_blocks}")
+    return counts
+
+
+def check_graph(fd, meta: dict, fname: str) -> None:
+    """The beam program holds each decode kernel's operator at MAX_LEN × its
+    launches a step."""
+    from fpn_mt_image_captioning_torch.ops.operators import OP_NAMES
+
+    want = {OP_NAMES[k]: MAX_LEN * n for k, n in decode_per_step(fd).items()}
+    got = {k: v for k, v in meta["programs"][fname]["kernel_nodes"].items() if k in want.keys()}
+    if got != want:
+        raise SmokeFailure(f"{fname}: kernel nodes {got}, expected {want}")
+
+
+def phase_artifact_turns(torch, fd, served, pipe, rng) -> dict:
+    """``ExportedServing.predict_batch`` against ``Pipeline.predict_batch`` at
+    16 and 64 images in turns (pipeline, artifact, artifact, pipeline, five
+    times; medians), with the decode steps of each call."""
+    import numpy as np
+
+    out = {}
+    for n in (16, 64):
+        images = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
+        served.predict_batch(images)
+        pipe.predict_batch(images)
+        turns, steps = {"pipeline": [], "artifact": []}, {"pipeline": [], "artifact": []}
+        for _ in range(5):
+            for name, p in (("pipeline", pipe), ("artifact", served), ("artifact", served),
+                            ("pipeline", pipe)):
+                start = fd.decoder_logsoftmax_topk.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p.predict_batch(images)
+                torch.cuda.synchronize()
+                turns[name].append(time.perf_counter() - t0)
+                steps[name].append((fd.decoder_logsoftmax_topk.launches - start)
+                                   // -(-n // ART_BATCH))
+        out[n] = {"pipeline_s": statistics.median(turns["pipeline"]),
+                  "artifact_s": statistics.median(turns["artifact"]), "runs": turns,
+                  "steps_per_chunk": {k: sorted(set(v)) for k, v in steps.items()}}
+        if set(steps["artifact"]) != {MAX_LEN}:
+            raise SmokeFailure(f"artifact: decode steps {steps['artifact']}, not {MAX_LEN}")
+    return out
+
+
+def traced_copies(torch, fn) -> dict:
+    """One traced run of ``fn``: wall, device busy ms and idle share, and the
+    device ms and launches of copy kernels (memcpy, ``copy_`` and cat)."""
+    from fpn_mt_image_captioning_torch.utils.profiling import cuda_kernel_times
+
+    rows, wall_ms = cuda_kernel_times(fn)
+    busy = sum(us for _, us, _ in rows) / 1e3
+    copies = [(k, us, c) for k, us, c in rows
+              if any(w in k.lower() for w in ("copy", "memcpy", "cat"))]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_idle_share": 1 - busy / wall_ms,
+            "copy_ms": sum(us for _, us, _ in copies) / 1e3,
+            "copy_kernels": [{"kernel": k[:90], "ms": us / 1e3, "count": c}
+                             for k, us, c in sorted(copies, key=lambda r: -r[1])[:6]]}
+
+
+def program_stats(meta: dict, served) -> dict:
+    """Each program's export seconds, nodes and bytes, with its load
+    seconds where it has loaded."""
+    return {k: {**v, "load_s": served.load_seconds.get(k)} for k, v in meta["programs"].items()}
+
+
+def phase_artifact_main(fd, torch, build, workdir) -> dict:
+    """(a), (c), (d) at the flagship, on its beam programs: export and
+    load; a request of 61 images bitwise equal to the pipeline's with the
+    launches counted; the float program against the uint8 one; a fresh
+    process that captions without the model module; the CLI and the server
+    on the artifact; the in-turns times and a traced run. Each step prints
+    its line as it ends. Returns the launches of the request."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch import caption, serve
+    from fpn_mt_image_captioning_torch import export as ex
+
+    card = card_line()
+    pipe = build(decode_batch=ART_BATCH, max_decode_rows=ART_BATCH * BEAM)
+    art = Path(workdir) / "artifact"
+    reset_all_counts()
+    t0 = time.perf_counter()
+    meta = ex.export_serving(pipe, str(art))
+    export_s = time.perf_counter() - t0
+    if any(read_all_counts().values()):
+        raise SmokeFailure("export launched a kernel (it traces on fake tensors)")
+    check_graph(fd, meta, ex.ARTIFACT_FN)
+    check_graph(fd, meta, ex.ARTIFACT_U8_FN)
+    say("artifact_export", card=card, export_s=export_s, programs=meta["programs"],
+        weights_bytes=os.path.getsize(art / ex.ARTIFACT_WEIGHTS))
+
+    # (a) a request of four chunks, the last padded
+    t0 = time.perf_counter()
+    served = ex.load_serving(str(art))
+    open_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1717)
+    images = rng.integers(0, 256, (ART_REQUEST, SIZE, SIZE, 3), dtype=np.uint8)
+    chunks = -(-ART_REQUEST // ART_BATCH)
+    want = pipe.predict_batch(images)
+    reset_all_counts()
+    got = served.predict_batch(images)
+    counts = artifact_counts(fd, chunks, 0)
+    equal_outputs("artifact uint8 vs Pipeline.predict_batch", got, want)
+    captions = [served.to_caption(s, n) for s, n in zip(*got)]
+    if captions != [pipe.to_caption(s, n) for s, n in zip(*want)]:
+        raise SmokeFailure("artifact: captions differ from the pipeline's")
+    equal_outputs("artifact float vs uint8", served.predict_batch(
+        card_normalized(torch, images, pipe.device)), got)
+    say("artifact_request", card=card, open_s=open_s, programs=program_stats(meta, served),
+        request=ART_REQUEST, chunks=chunks, bitwise_equal_to_pipeline=True,
+        float_equal_uint8=True, caption0=captions[0][:60],
+        launches={k: n for k, n in counts.items() if k not in PROBE_TPU_KERNELS})
+
+    # (c) a fresh process: the captions, without the model module
+    chunk = images[:ART_BATCH]
+    np.save(art.parent / "request.npy", chunk)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SUBPROCESS_CAPTIONS, str(art),
+                           str(art.parent / "request.npy")], capture_output=True, text=True,
+                          timeout=900, cwd=Path(__file__).resolve().parent)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"artifact subprocess failed: {proc.stderr[-3000:]}")
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    if fresh["transformer_imported"] or fresh["captions"] != captions[:ART_BATCH]:
+        raise SmokeFailure(f"artifact subprocess: {fresh}")
+    say("artifact_subprocess", card=card, wall_s=time.perf_counter() - t0,
+        load_seconds=fresh["load_seconds"], transformer_imported=False, captions_equal=True)
+
+    # (d) the CLI and the server on the artifact
+    img_dir = art.parent / "artifact_images"
+    img_dir.mkdir()
+    for i, a in enumerate(images[:20]):
+        (img_dir / f"img{i:03d}.png").write_bytes(png_bytes(a))
+    cfg = served.apply_to_config(pipe.config)
+    results = caption.main(cfg, str(img_dir), str(art.parent / "cli.json"), pipeline=served)
+    if [r["caption"] for r in results] != captions[:20]:
+        raise SmokeFailure("artifact CLI: captions differ from predict_batch's")
+    srv = serve.make_server(cfg, port=0, max_delay_ms=200.0, pipeline=served)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def post(i):
+        req = urllib.request.Request(base + "/caption", method="POST",
+                                     data=(img_dir / f"img{i:03d}.png").read_bytes())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())["caption"]
+
+    try:
+        with ThreadPoolExecutor(SERVER_REQUESTS) as pool:
+            replies = list(pool.map(post, range(SERVER_REQUESTS)))
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.server_close()
+        thread.join(timeout=60)
+    if replies != [(200, c) for c in captions[:SERVER_REQUESTS]]:
+        raise SmokeFailure(f"artifact server: {replies}")
+    say("artifact_cli_server", card=card, cli_files=len(results), server_requests=len(replies),
+        equal_to_predict_batch=True)
+
+    turns = phase_artifact_turns(torch, fd, served, pipe, rng)
+    say("artifact_in_turns", card=card, batch16=turns[16], batch64=turns[64])
+    say("artifact_trace", card=card, batch=ART_BATCH,
+        artifact=traced_copies(torch, lambda: served.predict_batch(chunk)),
+        pipeline=traced_copies(torch, lambda: pipe.predict_batch(chunk)))
+    return counts
+
+
+def phase_artifact_sampling(torch, build, workdir) -> None:
+    """(b) the four sampling programs, exported from the flagship's widths cut
+    in depth to ``ART_SAMPLE_LAYERS``+``ART_SAMPLE_LAYERS`` layers and
+    ``ART_SAMPLE_LEN`` steps (a program inlines the non-fused step once a
+    layer and a step, and its export and load take ~3 ms of host a node):
+    uint8 and float, with and without ``top_p``, each equal to
+    ``Pipeline.sample_batch`` on a full chunk."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch import export as ex
+
+    pipe = build(num_layers=ART_SAMPLE_LAYERS, max_len=ART_SAMPLE_LEN, decode_batch=ART_BATCH,
+                 max_decode_rows=ART_BATCH * BEAM)
+    art = Path(workdir) / "artifact_sampling"
+    t0 = time.perf_counter()
+    meta = ex.export_serving(pipe, str(art), sample=True)
+    export_s = time.perf_counter() - t0
+    say("artifact_sampling_export", card=card_line(), layers=ART_SAMPLE_LAYERS,
+        steps=ART_SAMPLE_LEN, export_s=export_s, programs=meta["programs"])
+    served = ex.load_serving(str(art))
+    chunk = np.random.default_rng(1720).integers(0, 256, (ART_BATCH, SIZE, SIZE, 3),
+                                                 dtype=np.uint8)
+    temps = np.linspace(0.5, 1.2, ART_BATCH).astype(np.float32)
+    for top_p in (0.9, None):
+        want = pipe.sample_batch(chunk, seed=ART_SEED, temperature=temps, top_p=top_p)
+        for x in (chunk, card_normalized(torch, chunk, pipe.device)):
+            equal_outputs(f"sampling top_p={top_p} {x.dtype}", served.sample_batch(
+                x, seed=ART_SEED, temperature=temps, top_p=top_p), want)
+    say("artifact_sampling", card=card_line(), layers=ART_SAMPLE_LAYERS,
+        load_s=served.load_seconds, sampling_equal_to_pipeline=True, lengths=want[1].tolist())
+
+
+def phase_artifact_train(fd, torch, Config, workdir) -> None:
+    """(e, f) the ``train`` main over phase 15's corpus at 2+2 layers with
+    the fused backbone (as phase 15 trains) for 2 steps with ``profile_dir``
+    and ``export_artifact_dir``: the trace holds CUDA kernel events; the
+    artifact it exports is a fused-backbone one with beam programs only,
+    and loads and equals the trained pipeline's ``predict_batch`` on a
+    request of two chunks, each decode kernel at max_seq_len (the corpus')
+    × 2 × its launches a step and ``fused_ir_block`` at 17 a chunk."""
+    import contextlib
+    import glob
+
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch import export as ex
+    from fpn_mt_image_captioning_torch.train.__main__ import main as train_main
+
+    root = Path(workdir) / "train_main"
+    out = Path(workdir) / "artifact_train"
+    cfg = Config(datadir=str(root / "data"), epochs=1, batch_size=10, fused_backbone=True,
+                 n_train_dataset=2 * 10, n_epoch_to_evaluate=100, num_layers=ART_TRAIN_LAYERS,
+                 warm_up_steps=TRAIN_WARMUP, tokenizer_filename=str(root / "tokenizer.json"),
+                 additional_filename=str(out / "info.json"),
+                 transformer_checkpoint_path=str(out / "ckpt"),
+                 transformer_weight_path=str(out / "weights.msgpack"),
+                 result_dir=str(out / "results"), profile_dir=str(out / "profile"),
+                 export_artifact_dir=str(out / "artifact"))
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), contextlib.redirect_stdout(io.StringIO()) as printed, \
+            contextlib.redirect_stderr(io.StringIO()):
+        pipe = train_main(cfg)
+    wall = time.perf_counter() - t0
+    traces = glob.glob(str(out / "profile" / "*.pt.trace.json"))
+    if len(pipe.train_loss_history) != 2 or len(traces) != 1:
+        raise SmokeFailure(f"train main: steps {pipe.train_loss_history}, traces {traces}")
+    events = json.loads(Path(traces[0]).read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if kernels == 0:
+        raise SmokeFailure("train main: the trace holds no CUDA kernel event")
+    if not (out / "artifact" / ex.ARTIFACT_META).is_file():
+        raise SmokeFailure(f"train main: no artifact; it printed {printed.getvalue()[-2000:]}")
+    served = ex.load_serving(str(out / "artifact"))
+    meta = served.meta
+    if not meta["fused_backbone"] or meta["sampling"] or \
+            meta["programs"][ex.ARTIFACT_U8_FN]["kernel_nodes"]["fpn_mt::fused_ir_block"] \
+            != N_BLOCKS:
+        raise SmokeFailure(f"train main's artifact: {meta}")
+    images = np.random.default_rng(1719).integers(0, 256, (2 * ART_BATCH, SIZE, SIZE, 3),
+                                                  dtype=np.uint8)
+    want = pipe.predict_batch(images[:ART_BATCH]), pipe.predict_batch(images[ART_BATCH:])
+    reset_all_counts()
+    got = served.predict_batch(images)
+    counts = read_all_counts()
+    nl = ART_TRAIN_LAYERS
+    check_decode_counts(fd, {fd.decoder_linear: 6 * nl + 1, fd.decoder_add_layernorm: 3 * nl,
+                             fd.decoder_self_attention: nl, fd.decoder_cross_attention: nl,
+                             fd.decoder_logsoftmax_topk: 1}, meta["max_seq_len"] * 2)
+    if counts["fused_ir_block"] != N_BLOCKS * 2:
+        raise SmokeFailure(f"train main's artifact: {counts['fused_ir_block']} backbone "
+                           "launches for 2 chunks")
+    equal_outputs("trained fused artifact vs the trained pipeline", got,
+                  tuple(np.concatenate(parts) for parts in zip(*want)))
+    say("artifact_train_main", card=card_line(), wall_s=wall, layers=ART_TRAIN_LAYERS,
+        steps=2, losses=pipe.train_loss_history, trace_file_bytes=os.path.getsize(traces[0]),
+        trace_kernel_events=kernels, programs=program_stats(meta, served),
+        weights_bytes=os.path.getsize(out / "artifact" / ex.ARTIFACT_WEIGHTS),
+        bitwise_equal_to_pipeline=True,
+        launches={k: n for k, n in counts.items() if k not in PROBE_TPU_KERNELS})
+
+
+def phase_17(fd, torch, build, Config, workdir) -> dict:
+    t0 = time.perf_counter()
+    counts = phase_artifact_main(fd, torch, build, workdir)
+    torch.cuda.empty_cache()
+    phase_artifact_sampling(torch, build, workdir)
+    torch.cuda.empty_cache()
+    phase_artifact_train(fd, torch, Config, workdir)
+    say("phase17", card=card_line(), seconds=time.perf_counter() - t0)
+    return counts
+
+
 def greedy_of(pipe, images):
     """``greedy_decode`` of ``images`` on ``pipe``'s weights, as numpy."""
     from fpn_mt_image_captioning_torch.decode.beam_search import greedy_decode
@@ -2759,6 +3118,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         backbones_counts = phase_16(fd, torch, dev, Config, Pipeline, tokenizer, variables,
                                     workdir)
+        torch.cuda.empty_cache()
+        artifact_counts_ = phase_17(fd, torch, build, Config, workdir)
     eval_counts["fused_ir_block"] = fused_eval_counts["fused_ir_block"]
 
     counts.update(probe_counts)
@@ -2780,7 +3141,8 @@ def main() -> int:
                         "evaluate_launches": eval_counts[k.__name__],
                         "decode_modes_launches": modes_counts[k.__name__],
                         "train_launches": train_counts[k.__name__],
-                        "backbones_launches": backbones_counts[k.__name__]})
+                        "backbones_launches": backbones_counts[k.__name__],
+                        "artifact_launches": artifact_counts_[k.__name__]})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -3,8 +3,8 @@ images on the CUDA card (port of the repository's root ``caption.py``).
 
     python -m fpn_mt_image_captioning_torch.caption --images=DIR
         [--out=results/serving_captions_result.json] [--latency[=N]]
-        [--decode_batch=64] [--beam_search_n=8] [--fused_backbone=true]
-        [any Config --key=value]
+        [--artifact=DIR] [--decode_batch=64] [--beam_search_n=8]
+        [--fused_backbone=true] [any Config --key=value]
 
 Images are decoded and resized on host threads (the native loader, PIL for
 what it rejects) while the card captions the previous batch; every batch is
@@ -16,8 +16,9 @@ The pipeline comes from ``Pipeline.from_config``: the tokenizer and
 ``max_seq_len`` files of the Config, and the weights of the Flax msgpack file
 ``--transformer_weight_path`` where it exists (the JAX package's
 ``Pipeline.save_weights``); without it seeded weights, or a refusal where an
-Orbax checkpoint exists (reading one is not ported). ``--artifact`` (a
-compiled export) is not ported either and raises.
+Orbax checkpoint exists (reading one is not ported). With ``--artifact=DIR``
+it serves an exported artifact instead (``export.load_serving``, on the
+card), whose image size, beam and batch override the Config's.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from .config import Config
 from .data.dataset import load_image_batch
 from .train.pipeline import Pipeline
 
-__all__ = ["IMAGE_EXTS", "list_images", "measure_latency", "main"]
+__all__ = ["IMAGE_EXTS", "list_images", "measure_latency", "main", "parse_args", "cli"]
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".ppm", ".bmp")
 
@@ -157,8 +158,9 @@ def main(cfg: Config, images_path: str, out_path: str | None, latency_n: int = 0
 
 
 def parse_args(argv: list[str]):
-    """``(cfg, images, out, latency_n)`` from the command line."""
-    images, out, latency_n = None, None, 0
+    """``(cfg, images, out, latency_n, artifact)`` from the command line
+    (``artifact`` None without ``--artifact``)."""
+    images, out, latency_n, artifact = None, None, 0, None
     passthrough = []
     for arg in argv:
         if arg.startswith("--images="):
@@ -169,16 +171,29 @@ def parse_args(argv: list[str]):
             latency_n = int(arg.split("=", 1)[1])
         elif arg == "--latency":
             latency_n = 16
-        elif arg.startswith("--artifact"):
-            raise NotImplementedError("--artifact: serving a compiled export is not ported yet")
+        elif arg.startswith("--artifact="):
+            artifact = arg.split("=", 1)[1]
         else:
             passthrough.append(arg)
     if images is None:
         raise SystemExit("usage: python -m fpn_mt_image_captioning_torch.caption "
-                         "--images=<dir-or-file> [--out=...] [--latency[=N]] [--key=value ...]")
-    return Config.from_flags(passthrough), images, out, latency_n
+                         "--images=<dir-or-file> [--out=...] [--latency[=N]] [--artifact=DIR] "
+                         "[--key=value ...]")
+    return Config.from_flags(passthrough), images, out, latency_n, artifact
+
+
+def cli(argv: list[str], device=None) -> list[dict]:
+    """The command line: ``parse_args``, the artifact loaded where one is
+    given (on ``device``, default the card), then ``main``."""
+    cfg, images, out, latency_n, artifact = parse_args(argv)
+    served = None
+    if artifact:
+        from .export import load_serving
+
+        served = load_serving(artifact, device)
+        cfg = served.apply_to_config(cfg)
+    return main(cfg, images, out, latency_n=latency_n, pipeline=served)
 
 
 if __name__ == "__main__":
-    _cfg, _images, _out, _latency = parse_args(sys.argv[1:])
-    main(_cfg, _images, _out, latency_n=_latency)
+    cli(sys.argv[1:])

@@ -35,7 +35,12 @@ index (``torch.topk`` promises no tie order).
 ``sample_decode`` draws tokens with temperature / top-k / nucleus
 truncation on the non-fused step; ``sample_tokens`` is its token choice as
 a pure function of the logits and the Gumbel noise. The loops run in
-Python with one host sync per step (the stop test).
+Python with one host sync per step (the stop test), or, with
+``fixed_steps``, exactly ``max_len`` steps and no sync: what an exported
+program runs (``export.py``). Fast mode freezes a finished beam at +0 with
+pad, so frozen beams keep their order under the stable sort and the first
+``<end>`` cuts the result: the steps after every beam has finished change
+nothing, and both trip counts give the same result.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ from __future__ import annotations
 import torch
 
 from ..models.positional import raw_positional_encoding
-from ..ops.fused_decoder import fused_decode_step, init_fused_cache, pack_decoder_weights
+from ..ops.fused_decoder import (fused_decode_step, init_fused_cache, no_grad,
+                                 pack_decoder_weights)
+from .noise import gumbel
 
 __all__ = ["beam_search", "greedy_decode", "sample_decode", "sample_tokens",
            "strip_sequence", "cast_for_inference", "NEG_INF"]
@@ -180,7 +187,7 @@ def _cached_expand(model, enc_output, beam_n: int, max_len: int, parity: bool):
     return expand
 
 
-@torch.no_grad()
+@no_grad
 def beam_search(
     model,
     enc_output: torch.Tensor,    # (B, Lenc, d_model)
@@ -192,6 +199,7 @@ def beam_search(
     parity: bool = False,
     fused: bool = False,         # the fused decode step (hand-written kernels on the card)
     packed: dict | None = None,  # fused: pack_decoder_weights(model, dtype); packed here if None
+    fixed_steps: bool = False,   # run all max_len steps; never read the stop flag on the host
 ):
     """Returns ``(sequences (B, max_len) int32, lengths (B,) int32, scores (B,))``
     — the best beam per batch item, ``<start>``/``<end>`` stripped, pad 0
@@ -220,7 +228,7 @@ def beam_search(
     idx = torch.arange(max_len, device=dev)[None, :]
 
     t = 0
-    while t < max_len and not bool((done if parity else finished).all()):
+    while t < max_len and (fixed_steps or not bool((done if parity else finished).all())):
         new_scores, beam_idx, new_tokens = expand(tokens, t, scores, finished)
         seqs = seqs.gather(1, beam_idx[..., None].expand(-1, -1, max_len))
         seqs[:, :, t] = new_tokens.to(torch.int32)
@@ -276,16 +284,11 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor, top_k: int,
     return (logits + noise).argmax(dim=-1)
 
 
-def _gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """Standard Gumbel noise from ``generator``: -log(-log(U))."""
-    return -torch.log(-torch.log(torch.rand(shape, generator=generator, device=device)))
-
-
-@torch.no_grad()
+@no_grad
 def sample_decode(
     model,
     enc_output: torch.Tensor,        # (B, Lenc, d_model)
-    generator: torch.Generator,      # on enc_output's device; the noise of every step
+    generator: torch.Generator | None,  # on enc_output's device; the noise of every step
     *,
     max_len: int,
     start_token: int,
@@ -293,11 +296,15 @@ def sample_decode(
     temperature=1.0,                 # scalar or (B,)
     top_k: int = 0,                  # 0 = no top-k truncation
     top_p=None,                      # scalar or (B,); None omits the nucleus sort
+    noise: torch.Tensor | None = None,  # (max_len, B, V) Gumbel noise in place of generator's
+    fixed_steps: bool = False,       # run all max_len steps; never read the stop flag on the host
 ):
     """Ancestral sampling on the non-fused decode step, with the stripped
     return contract of ``beam_search``: (seqs (B, max_len) int32, lengths).
     A finished row emits pad (0); the loop stops when every row has
-    finished, or after ``max_len`` tokens."""
+    finished (unless ``fixed_steps``), or after ``max_len`` tokens. Step
+    ``t`` draws its noise from ``generator`` (``decode.noise.gumbel``), or
+    takes ``noise[t]``."""
     dev = enc_output.device
     batch = enc_output.shape[0]
     temperature = torch.as_tensor(temperature, dtype=torch.float32, device=dev).expand(batch)
@@ -308,10 +315,10 @@ def sample_decode(
     tokens = torch.full((batch,), start_token, dtype=torch.long, device=dev)
     finished = torch.zeros((batch,), dtype=torch.bool, device=dev)
     t = 0
-    while t < max_len and not bool(finished.all()):
+    while t < max_len and (fixed_steps or not bool(finished.all())):
         logits, _ = model.decode_step(tokens, t, cache)      # no reorder: no ancestry
-        noise = _gumbel(generator, logits.shape, dev)
-        tokens = sample_tokens(logits, temperature, top_k, top_p, noise)
+        step_noise = gumbel(generator, logits.shape, dev) if noise is None else noise[t]
+        tokens = sample_tokens(logits, temperature, top_k, top_p, step_noise)
         tokens = torch.where(finished, 0, tokens)
         seqs[:, t] = tokens.to(torch.int32)
         finished |= tokens == end_token

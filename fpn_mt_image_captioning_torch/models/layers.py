@@ -41,6 +41,14 @@ __all__ = [
 ]
 
 
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``; ``t`` itself where it has that dtype already, as
+    ``Tensor.to`` returns it, but without the cast node and metadata check
+    that a ``torch.export`` trace records for ``t.to(dtype)`` (they were half
+    the nodes of an exported decode program)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
     """``uint8 RGB → [-1, 1] float32`` (MobileNetV2 ``preprocess_input``:
     ``x/127.5 - 1``); float inputs pass through unchanged."""
@@ -73,10 +81,9 @@ class LayerNorm32(nn.LayerNorm):
         super().__init__(d, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(),
-            self.bias.float(), self.eps,
-        ).to(x.dtype)
+        f32 = torch.float32
+        return cast(F.layer_norm(cast(x, f32), self.normalized_shape, cast(self.weight, f32),
+                                 cast(self.bias, f32), self.eps), x.dtype)
 
 
 class BatchNorm32(nn.Module):
@@ -102,10 +109,11 @@ class BatchNorm32(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
-            return F.batch_norm(
-                x.float(), self.running_mean.float(), self.running_var.float(),
-                self.weight.float(), self.bias.float(), False, 0.0, self.eps,
-            ).to(x.dtype)
+            f32 = torch.float32
+            return cast(F.batch_norm(
+                cast(x, f32), cast(self.running_mean, f32), cast(self.running_var, f32),
+                cast(self.weight, f32), cast(self.bias, f32), False, 0.0, self.eps,
+            ), x.dtype)
         x32 = x.float()
         mean = x32.mean(dim=(0, 2, 3))
         var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
@@ -122,7 +130,7 @@ class Dense(nn.Linear):
     """``nn.Linear`` computing in the dtype of its input."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -145,8 +153,8 @@ class SameConv2d(nn.Conv2d):
         if x.shape[2] == 0 or x.shape[3] == 0:
             return x.new_empty((x.shape[0], self.out_channels,
                                 -(-x.shape[2] // sh), -(-x.shape[3] // sw)))
-        weight = self.weight.to(x.dtype)
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        weight = cast(self.weight, x.dtype)
+        bias = None if self.bias is None else cast(self.bias, x.dtype)
         ph, pw = _same_pads(x.shape[2], kh, sh), _same_pads(x.shape[3], kw, sw)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(x, weight, bias, self.stride, (ph[0], pw[0]), 1, self.groups)

@@ -22,7 +22,8 @@ float32, then one cast.
 ``fused_ir_block`` takes its plain PyTorch version
 (``fused_ir_block_reference``) when its input lies on the CPU, launches the
 kernel on a CUDA tensor, and raises on anything else; it counts its launches
-in ``.launches``.
+in ``.launches``. It is also a custom operator (``ops/operators.py``), the
+node an exported program (``export.py``) holds for it.
 """
 
 from __future__ import annotations
@@ -329,8 +330,14 @@ def fused_mobilenet_backbone(packed: dict, images: torch.Tensor, *, plain: bool 
     """MobileNetV2 on folded weights: NHWC images (B, S, S, 3) in [-1, 1] →
     NHWC taps (C3, C4, C5), as ``MobileNetV2Backbone`` gives them in eval mode
     (there NCHW). The stem is a cuDNN conv, the 17 blocks ``fused_ir_block``
-    (its plain version everywhere with ``plain``), the head a matmul."""
-    block = fused_ir_block_reference if plain else fused_ir_block
+    (its plain version everywhere with ``plain``; its custom operator on the
+    CPU and under ``torch.export``), the head a matmul."""
+    if plain:
+        block = fused_ir_block_reference
+    elif torch.compiler.is_compiling() or on_cpu(images):
+        from .operators import ir_block_via_op as block
+    else:
+        block = fused_ir_block
     dtype = packed["stem_k"].dtype
     x = F.pad(images.to(dtype).permute(0, 3, 1, 2), (0, 1, 0, 1))   # SAME, stride 2
     x = F.conv2d(x, packed["stem_k"], stride=2).permute(0, 2, 3, 1)

@@ -17,8 +17,10 @@ vocabulary:
 Each wrapper takes its kernel's plain PyTorch version (``*_reference``) when
 the tensor it is given lies on the CPU, launches the kernel on a CUDA tensor,
 and raises on anything else; each counts its launches in ``.launches``.
+Each wrapper is also a custom operator (``ops/operators.py``), the node an
+exported program (``export.py``) holds for it.
 ``fused_decode_step_reference`` is the whole step built from the plain
-versions: the CPU route, and what the kernels are held to on the card.
+versions: what the kernels are held to on the card.
 
 Layouts (d = d_model, f = dff, V = vocabulary, BK = B·beam):
   packed weights in (in, out) layout, stacked over layers, compute dtype;
@@ -41,14 +43,14 @@ import torch.nn.functional as F
 from ._build import check, launched, load_library, on_cpu, stream
 
 __all__ = [
-    "FUSED_ACTIVATIONS", "KERNELS", "round_up", "pack_decoder_weights",
+    "FUSED_ACTIVATIONS", "KERNELS", "round_up", "no_grad", "pack_decoder_weights",
     "init_fused_cache", "fused_decode_step", "fused_decode_step_reference",
     "decoder_linear", "decoder_linear_reference",
     "decoder_add_layernorm", "decoder_add_layernorm_reference",
     "decoder_self_attention", "decoder_self_attention_reference",
     "decoder_cross_attention", "decoder_cross_attention_reference",
     "decoder_logsoftmax_topk", "decoder_logsoftmax_topk_reference",
-    "reset_launch_counts", "LIBRARY", "KERNEL_OPS", "PLAIN_OPS", "decode_step_with",
+    "reset_launch_counts", "LIBRARY", "KERNEL_OPS", "PLAIN_OPS", "step_ops", "decode_step_with",
     "LinearPlan", "linear_plan",
 ]
 
@@ -72,10 +74,27 @@ def round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def no_grad(fn):
+    """``torch.no_grad()`` as a decorator, except that it leaves grad mode
+    alone where it is off already: ``torch.export`` records each switch as a
+    region that it inlines afterwards by regenerating the whole graph, once
+    a decode step, which made an export's time grow with the square of its
+    steps (``export.py`` exports under an outer ``no_grad``)."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        with torch.no_grad():
+            return fn(*args, **kwargs)
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # packing and cache
 # ---------------------------------------------------------------------------
-@torch.no_grad()
+@no_grad
 def pack_decoder_weights(model, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Stack the decoder's per-layer weights of a ``Transformer`` along a
     leading layer axis, matrices in (in, out) layout and ``dtype``, biases and
@@ -130,7 +149,7 @@ def pack_decoder_weights(model, dtype: torch.dtype = torch.bfloat16) -> dict:
     return packed
 
 
-@torch.no_grad()
+@no_grad
 def init_fused_cache(packed: dict, enc_output: torch.Tensor, beam: int, max_len: int) -> dict:
     """Zero self caches (N, Lpad, B·beam, d) with Lpad = round_up(max_len+1, 8),
     and the cross K/V of every layer projected once per batch item,
@@ -496,6 +515,17 @@ PLAIN_OPS = SimpleNamespace(
 )
 
 
+def step_ops(x: torch.Tensor) -> SimpleNamespace:
+    """The ops a step on ``x`` goes through: the wrappers themselves for an
+    eager CUDA tensor, the custom operators (``ops/operators.py``) on the
+    CPU and whenever ``torch.export`` (or ``torch.compile``) traces."""
+    if torch.compiler.is_compiling() or on_cpu(x):
+        from .operators import CUSTOM_OPS
+
+        return CUSTOM_OPS
+    return KERNEL_OPS
+
+
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
@@ -540,7 +570,7 @@ def fused_decode_step_reference(packed, cache, x_emb, src_t, pos: int, scores, f
     return top_s, top_i, cache
 
 
-@torch.no_grad()
+@no_grad
 def fused_decode_step(packed, cache, x_emb, src_t, pos: int, scores, finished, *,
                       num_layers: int, beam: int, num_heads: int,
                       topk: int | None = None, activation: str = "leaky_relu"):
@@ -557,13 +587,9 @@ def fused_decode_step(packed, cache, x_emb, src_t, pos: int, scores, finished, *
     Contract: ``src_t[pos]`` is each row's OWN beam index — the current
     position's K/V come from this step's projection, not from the cache;
     ``beam_search`` guarantees it. CUDA tensors run the hand-written kernels,
-    CPU tensors ``fused_decode_step_reference``."""
-    if on_cpu(x_emb):
-        return fused_decode_step_reference(
-            packed, cache, x_emb, src_t, pos, scores, finished, num_layers=num_layers,
-            beam=beam, num_heads=num_heads, topk=topk, activation=activation)
+    CPU tensors their plain versions; both through ``step_ops``."""
     top_s, top_i = decode_step_with(
-        KERNEL_OPS, packed, cache, x_emb, src_t, pos, scores, finished,
+        step_ops(x_emb), packed, cache, x_emb, src_t, pos, scores, finished,
         num_layers=num_layers, beam=beam, num_heads=num_heads, topk=topk,
         activation=activation)
     return top_s, top_i, cache

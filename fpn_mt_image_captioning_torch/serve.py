@@ -29,13 +29,16 @@ body is a 400, an unknown path a 404.
     python -m fpn_mt_image_captioning_torch.serve [--port=8500]
         [--serve_batch=64] [--max_delay_ms=10] [--max_queue=N]
         [--request_timeout_s=1800] [--beam_search_n=8] [--fused_backbone=true]
-        [--decode=beam|sample] [--sample_seed=N] [any Config --key=value]
+        [--decode=beam|sample] [--sample_seed=N] [--artifact=DIR]
+        [any Config --key=value]
 
 The weights are those of ``Pipeline.from_config``: the Flax msgpack file
 ``--transformer_weight_path`` where it exists, else the seeded init (or a
 refusal where an Orbax checkpoint exists). A sampling batch is seeded with
-``sample_seed`` + the batch's sequence number. Serving a compiled export
-(``--artifact``) is not ported yet and raises.
+``sample_seed`` + the batch's sequence number. With ``--artifact=DIR`` it
+serves an exported artifact (``export.load_serving``, on the card) without
+the model code; its image size, beam and batch override the Config's, and
+``--decode=sample`` needs an artifact exported with ``--sample``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ from .train.pipeline import Pipeline
 from .utils.profiling import StepTimer
 
 __all__ = ["QueueFull", "DynamicBatcher", "CaptionServer", "decode_image_bytes",
-           "make_server", "main"]
+           "make_server", "server_from_argv", "main"]
 
 
 def decode_image_bytes(data: bytes, image_size: int, as_uint8: bool = False) -> np.ndarray:
@@ -258,7 +261,8 @@ class _Handler(BaseHTTPRequestHandler):
                 "decode": srv.batcher.decode,
                 "beam": srv.cfg.beam_search_n,
                 "image_size": srv.cfg.image_input_size,
-                "fused_backbone": getattr(srv.pipeline, "backbone_packed", None) is not None,
+                "fused_backbone": getattr(srv.pipeline, "fused_backbone", getattr(
+                    srv.pipeline, "backbone_packed", None) is not None),
             })
         elif self.path == "/stats":
             with srv.batcher._lock:
@@ -346,6 +350,11 @@ def make_server(cfg: Config, host: str = "127.0.0.1", port: int = 8500,
     sampled captions (per-request ``?temperature=&top_p=``)."""
     if decode not in ("beam", "sample"):
         raise ValueError(f"decode must be 'beam' or 'sample', got {decode!r}")
+    if decode == "sample" and pipeline is not None and not getattr(
+            pipeline, "supports_sampling", hasattr(pipeline, "sample_batch")):
+        raise ValueError("--decode=sample needs a live Pipeline or an artifact exported with "
+                         "`export --sample` (this artifact carries only the beam-search "
+                         "program)")
     if pipeline is None:
         pipeline = Pipeline.from_config(cfg)
     batch = serve_batch or max(cfg.decode_batch, 1)
@@ -354,9 +363,13 @@ def make_server(cfg: Config, host: str = "127.0.0.1", port: int = 8500,
                          sample_seed=sample_seed, max_queue=max_queue)
 
 
-def main(argv: list[str]) -> None:
+def server_from_argv(argv: list[str], device=None) -> tuple[CaptionServer, str, int]:
+    """The server of the command line, not yet running, and its host and
+    port: ``make_server`` on the flags, on the artifact of ``--artifact``
+    (loaded on ``device``, default the card) where one is given."""
     host, port, serve_batch, max_delay_ms = "0.0.0.0", 8500, None, 10.0
     decode, sample_seed, max_queue, request_timeout_s = "beam", 0, None, 1800.0
+    artifact = None
     passthrough = []
     for arg in argv:
         key, _, val = arg.partition("=")
@@ -377,13 +390,25 @@ def main(argv: list[str]) -> None:
         elif key == "--sample_seed":
             sample_seed = int(val)
         elif key == "--artifact":
-            raise NotImplementedError("--artifact: serving a compiled export is not ported yet")
+            artifact = val
         else:
             passthrough.append(arg)
     cfg = Config.from_flags(passthrough)
-    server = make_server(cfg, host, port, serve_batch, max_delay_ms, decode=decode,
-                         sample_seed=sample_seed, max_queue=max_queue,
+    pipeline = None
+    if artifact:
+        from .export import load_serving
+
+        pipeline = load_serving(artifact, device)
+        cfg = pipeline.apply_to_config(cfg)
+    server = make_server(cfg, host, port, serve_batch, max_delay_ms, pipeline=pipeline,
+                         decode=decode, sample_seed=sample_seed, max_queue=max_queue,
                          request_timeout_s=request_timeout_s)
+    return server, host, port
+
+
+def main(argv: list[str]) -> None:
+    server, host, port = server_from_argv(argv)
+    cfg, decode = server.cfg, server.batcher.decode
 
     # warm-up before accepting traffic: kernel builds and cuDNN plans
     warm = np.zeros((server.batcher.batch, cfg.image_input_size, cfg.image_input_size, 3),
@@ -400,7 +425,8 @@ def main(argv: list[str]) -> None:
     signal.signal(signal.SIGTERM,
                   lambda *_: threading.Thread(target=server.shutdown, daemon=True).start())
     print(f"serving on http://{host}:{port}  (batch={server.batcher.batch}, "
-          f"decode={decode}, beam={cfg.beam_search_n}, delay={max_delay_ms}ms)")
+          f"decode={decode}, beam={cfg.beam_search_n}, "
+          f"delay={1000 * server.batcher.max_delay_s:g}ms)")
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -19,14 +19,19 @@ and ``CIDEr`` go to a TensorBoard event file and ``scalars.jsonl`` under
 ``logs/transformer/<time>/train``. At the end it restores the checkpoint of
 the best CIDEr saved (and warns when none was) and writes the float32
 weights to ``transformer_weight_path`` as Flax msgpack, which the JAX
-package's ``Pipeline.load_weights`` reads.
+package's ``Pipeline.load_weights`` reads. With ``export_artifact_dir`` it
+then exports the serving artifact of those weights there
+(``export.export_serving``; a failure is printed, not raised: the weights
+are saved by then). With ``profile_dir`` a ``StepTracer`` writes a
+``torch.profiler`` trace of training steps 1 to 3 there (CPU and CUDA
+activities, ``*.pt.trace.json``).
 
 Without a checkpoint to restore, the pipeline boots its feature extractor
 from the Keras ``.h5`` file ``retinanet_weight_path`` where one is given (a
 missing file raises ``OSError`` before any step). Before any step it raises
-for what is not ported: ``mesh.enabled``, ``export_artifact_dir``,
-``profile_dir``, and a checkpoint directory of Orbax checkpoints. ``--is_training=false`` runs the
-evaluation of ``fpn_mt_image_captioning_torch.evaluate``.
+for what is not ported: ``mesh.enabled``, and a checkpoint directory of
+Orbax checkpoints. ``--is_training=false`` runs the evaluation of
+``fpn_mt_image_captioning_torch.evaluate``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ import numpy as np
 from ..config import Config
 from ..data.dataset import (COCO_Images_ImageID, get_coco_images_dataset, load_additional_info,
                             store_additional_info)
+from ..export import export_serving
+from ..utils.profiling import StepTracer
 from ..utils.tensorboard import ScalarLogger, SummaryWriter
 from .pipeline import Pipeline, refuse_unported_training_options
 
@@ -91,42 +98,53 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
     except ImportError:  # tqdm optional
         tqdm = lambda x, **k: x
 
+    tracer = StepTracer(cfg.profile_dir) if cfg.profile_dir else None
+    global_step = 0
     try:
-        for epoch in range(start_epoch, cfg.epochs):
-            print(f"Epoch {epoch + 1} / {cfg.epochs}")
-            epoch_losses = []
-            bar = tqdm(train_datasets, total=len(train_datasets))
-            for img, caption_token in bar:
-                loss = master.train_step(*pad_batch(img, caption_token, cfg.batch_size))
-                epoch_losses.append(loss)
-                if hasattr(bar, "set_postfix"):
-                    bar.set_postfix(loss=f"{loss:.4f}")
+        # the tracer closes when the epoch loop ends, also by an exception
+        # or Ctrl-C: the trace of the steps taken is still written
+        try:
+            for epoch in range(start_epoch, cfg.epochs):
+                print(f"Epoch {epoch + 1} / {cfg.epochs}")
+                epoch_losses = []
+                bar = tqdm(train_datasets, total=len(train_datasets))
+                for img, caption_token in bar:
+                    if tracer is not None:
+                        tracer.step(global_step)
+                    global_step += 1
+                    loss = master.train_step(*pad_batch(img, caption_token, cfg.batch_size))
+                    epoch_losses.append(loss)
+                    if hasattr(bar, "set_postfix"):
+                        bar.set_postfix(loss=f"{loss:.4f}")
 
-            mean_loss = sum(epoch_losses) / max(len(epoch_losses), 1)
-            writer.scalar("loss", mean_loss, epoch)
-            jsonl.scalar("loss", mean_loss, epoch)
+                mean_loss = sum(epoch_losses) / max(len(epoch_losses), 1)
+                writer.scalar("loss", mean_loss, epoch)
+                jsonl.scalar("loss", mean_loss, epoch)
 
-            if (epoch + 1) % cfg.n_epoch_to_evaluate == 0:
-                if cfg.bn_finalize_batches > 0:
-                    used = master.finalize_batch_stats(iter(train_datasets),
-                                                       cfg.bn_finalize_batches)
-                    print(f"BN stats finalized over {used} train batches")
-                print("Evaluating...")
-                results = master.evaluate(iter(val_datasets))
-                os.makedirs(os.path.dirname(cfg.result_file) or ".", exist_ok=True)
-                with open(cfg.result_file, "w") as outfile:
-                    json.dump(results, outfile)
-                if results:
-                    cider = master.metric_eval(cfg.result_file)
-                    writer.scalar("CIDEr", cider, epoch)
-                    jsonl.scalar("CIDEr", cider, epoch)
-                    should_break = master.smart_ckpt_saver(epoch + 1, cider, master.state_tree)
-                    if should_break == -1:
-                        break
-                    elif should_break == 1:
-                        additional_info[key_epoch] = master.smart_ckpt_saver.max_acc_epoch
-                        store_additional_info(additional_info, cfg.additional_filename)
-            print()
+                if (epoch + 1) % cfg.n_epoch_to_evaluate == 0:
+                    if cfg.bn_finalize_batches > 0:
+                        used = master.finalize_batch_stats(iter(train_datasets),
+                                                           cfg.bn_finalize_batches)
+                        print(f"BN stats finalized over {used} train batches")
+                    print("Evaluating...")
+                    results = master.evaluate(iter(val_datasets))
+                    os.makedirs(os.path.dirname(cfg.result_file) or ".", exist_ok=True)
+                    with open(cfg.result_file, "w") as outfile:
+                        json.dump(results, outfile)
+                    if results:
+                        cider = master.metric_eval(cfg.result_file)
+                        writer.scalar("CIDEr", cider, epoch)
+                        jsonl.scalar("CIDEr", cider, epoch)
+                        should_break = master.smart_ckpt_saver(epoch + 1, cider, master.state_tree)
+                        if should_break == -1:
+                            break
+                        elif should_break == 1:
+                            additional_info[key_epoch] = master.smart_ckpt_saver.max_acc_epoch
+                            store_additional_info(additional_info, cfg.additional_filename)
+                print()
+        finally:
+            if tracer is not None:
+                tracer.close()
 
         # restore the step of the best CIDEr among the epochs actually saved:
         # the latest checkpoint can be a worse one (the saver's early-epoch
@@ -142,6 +160,17 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
         if restored is not None:
             master.load_state_tree(restored)
         master.save_weights(cfg.transformer_weight_path)
+        if cfg.export_artifact_dir:
+            # the weights are saved above: a failed export must not turn a
+            # finished training run into a failure
+            try:
+                meta = export_serving(master, cfg.export_artifact_dir)
+                print(f"Exported serving artifact (batch={meta['batch']}, "
+                      f"beam={meta['beam_n']}) to {cfg.export_artifact_dir}")
+            except Exception as e:  # noqa: BLE001
+                print(f"export_artifact_dir: export failed ({type(e).__name__}: {e}); the "
+                      "weights are saved: run python -m fpn_mt_image_captioning_torch.export "
+                      "on them")
     finally:
         writer.close()
         jsonl.close()

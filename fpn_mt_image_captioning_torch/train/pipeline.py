@@ -98,12 +98,6 @@ def refuse_unported_training_options(cfg: Config) -> None:
     if cfg.mesh.enabled:
         raise NotImplementedError("mesh.enabled: training over a device mesh is not ported "
                                   "(ROADMAP A.9)")
-    if cfg.export_artifact_dir:
-        raise NotImplementedError(f"export_artifact_dir={cfg.export_artifact_dir!r}: the "
-                                  "serving-artifact export is not ported (ROADMAP A.10)")
-    if cfg.profile_dir:
-        raise NotImplementedError(f"profile_dir={cfg.profile_dir!r}: the training step "
-                                  "tracer is not ported (ROADMAP A.10)")
 
 
 class TrainState(NamedTuple):

@@ -46,9 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.attention import MultiViewAttention
 from .models.layers import BatchNorm32, he_normal_
-from .models.transformer import Encoder
 
 __all__ = ["from_flax", "to_flax", "train_state_to_flax", "train_state_from_flax",
            "init_weights", "read_flax_msgpack", "write_flax_msgpack", "MAX_CHUNK_SIZE"]
@@ -65,49 +63,59 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
             yield prefix + (k,), v
 
 
-def from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+def from_flax(variables: Mapping, keep_dtype: bool = False) -> dict[str, torch.Tensor]:
     """JAX package variables (numpy leaves) → a float32 state dict for
-    ``Transformer.load_state_dict(..., strict=True)``."""
+    ``Transformer.load_state_dict(..., strict=True)``; with ``keep_dtype``
+    each tensor keeps its leaf's dtype (a ``bfloat16`` leaf is a torch
+    tensor, as ``read_flax_msgpack`` returns it)."""
     state = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(collection, {})):
-            a = np.array(leaf, np.float32)   # a writable copy
+            if isinstance(leaf, torch.Tensor):
+                a = leaf.detach().cpu()
+            else:
+                a = torch.from_numpy(np.array(leaf, None if keep_dtype else np.float32))
+            if not keep_dtype:
+                a = a.float()
             *mods, name = path
             if name == "kernel":
                 name = "weight"
                 if a.ndim == 4:
-                    a = a.transpose(3, 2, 0, 1)     # HWIO → OIHW
+                    a = a.permute(3, 2, 0, 1)       # HWIO → OIHW
                 elif a.ndim == 2:
                     a = a.T                         # (in, out) → (out, in)
                 else:
-                    raise ValueError(f"unexpected kernel rank at {'/'.join(path)}: {a.shape}")
+                    raise ValueError(f"unexpected kernel rank at {'/'.join(path)}: "
+                                     f"{tuple(a.shape)}")
             else:
                 name = _RENAME.get(name, name)
-            state[".".join([*mods, name])] = torch.from_numpy(np.ascontiguousarray(a))
+            state[".".join([*mods, name])] = a.contiguous()
     return state
 
 
-def to_flax(model: nn.Module) -> dict:
+def to_flax(model: nn.Module, keep_dtype: bool = False) -> dict:
     """The inverse of ``from_flax``: the model's weights as the JAX package's
-    ``{"params", "batch_stats"}`` tree of float32 numpy arrays."""
-    return _flax_tree(model, model.state_dict().items())
+    ``{"params", "batch_stats"}`` tree of float32 numpy arrays; with
+    ``keep_dtype`` each leaf keeps its tensor's dtype (``bfloat16`` leaves
+    stay torch tensors, which ``write_flax_msgpack`` writes)."""
+    return _flax_tree(model, model.state_dict().items(), keep_dtype)
 
 
-def _flax_tree(model: nn.Module, items) -> dict:
+def _flax_tree(model: nn.Module, items, keep_dtype: bool = False) -> dict:
     """``(state-dict key, tensor)`` pairs of ``model`` as a Flax-layout tree."""
     out: dict = {"params": {}, "batch_stats": {}}
     modules = dict(model.named_modules())
     for key, t in items:
         mod, _, name = key.rpartition(".")
         m = modules[mod]
-        a = t.detach().to("cpu", torch.float32).numpy()
+        a = t.detach().to("cpu", None if keep_dtype else torch.float32)
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, name = "batch_stats", name[len("running_"):]
         elif name == "weight":
             if isinstance(m, (nn.Linear, nn.Conv2d)):
                 name = "kernel"
-                a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)   # → (in, out), HWIO
+                a = a.T if a.ndim == 2 else a.permute(2, 3, 1, 0)   # → (in, out), HWIO
             elif isinstance(m, nn.Embedding):
                 name = "embedding"
             elif isinstance(m, (nn.LayerNorm, BatchNorm32)):
@@ -117,7 +125,9 @@ def _flax_tree(model: nn.Module, items) -> dict:
         node = out[collection]
         for part in mod.split(".") if mod else ():
             node = node.setdefault(part, {})
-        node[name] = np.array(a, np.float32, order="C")   # a copy, detached from the model
+        # a copy, detached from the model
+        node[name] = (a.contiguous().clone() if a.dtype == torch.bfloat16
+                      else np.array(a.numpy(), order="C"))
     return out
 
 
@@ -454,6 +464,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     norm scales, BatchNorm statistics (0, 1). The JAX package uses the same
     families (and glorot/lecun/normal(0.01) for a few convs); the draws differ,
     since the generators do."""
+    from .models.attention import MultiViewAttention
+    from .models.transformer import Encoder
+
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             he_normal_(m.weight, m.weight[0].numel(), generator)

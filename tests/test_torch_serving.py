@@ -143,12 +143,17 @@ def test_cli_latency_report(world, capsys):
     assert report["n"] == 2 and report["min_ms"] > 0 and report["p90_ms"] >= report["p50_ms"]
 
 
-def test_cli_artifact_flag_raises():
-    with pytest.raises(NotImplementedError, match="artifact"):
-        pt_caption.parse_args(["--images=x", "--artifact=dir"])
-    cfg, images, out, n = pt_caption.parse_args(["--images=d", "--out=o.json", "--latency",
-                                                 "--beam_search_n=2"])
-    assert (images, out, n, cfg.beam_search_n) == ("d", "o.json", 16, 2)
+def test_cli_artifact_flag_raises(tmp_path):
+    """``--artifact=DIR`` is parsed, and served from (tests/test_torch_export.py
+    runs the CLI on an artifact); a directory that holds no artifact raises
+    when the CLI loads it, before any image is read."""
+    cfg, images, out, n, artifact = pt_caption.parse_args(["--images=x", "--artifact=dir"])
+    assert (images, artifact) == ("x", "dir")
+    with pytest.raises(FileNotFoundError, match="artifact.json"):
+        pt_caption.cli([f"--images={tmp_path}", f"--artifact={tmp_path}"], device="cpu")
+    cfg, images, out, n, artifact = pt_caption.parse_args(
+        ["--images=d", "--out=o.json", "--latency", "--beam_search_n=2"])
+    assert (images, out, n, cfg.beam_search_n, artifact) == ("d", "o.json", 16, 2, None)
 
 
 @pytest.mark.parametrize("what", ["checkpoint", "retinanet"])
@@ -289,8 +294,10 @@ def test_sampling_and_artifact_raise(world):
         srv.server_close()
     with pytest.raises(ValueError, match="decode"):
         pt_serve.make_server(CFG, port=0, pipeline=world["pipe"], decode="greedy")
-    with pytest.raises(NotImplementedError, match="artifact"):
-        pt_serve.main(["--artifact=dir"])
+    # --artifact is served (tests/test_torch_export.py); a directory that
+    # holds no artifact raises before the server binds
+    with pytest.raises(FileNotFoundError, match="artifact.json"):
+        pt_serve.main([f"--artifact={world['root']}"])
 
 
 # ---------------------------------------------------------------------------

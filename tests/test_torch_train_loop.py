@@ -376,8 +376,6 @@ def test_train_main_two_epochs(world, tmp_path, monkeypatch, capsys):
 UNPORTED = {
     "mesh": dict(mesh=PtMeshConfig(enabled=True)),
     "retinanet_weight_path": dict(retinanet_weight_path="retinanet.h5"),
-    "export_artifact_dir": dict(export_artifact_dir="artifact"),
-    "profile_dir": dict(profile_dir="profile"),
     "orbax": {},
 }
 
@@ -385,11 +383,12 @@ UNPORTED = {
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypatch, option):
     """Each option the port does not have raises ``NotImplementedError``
-    before any train step runs: the mesh (A.9), the serving export and the
-    step tracer (A.10), and a checkpoint directory of Orbax checkpoints
-    (A.2). The Keras ``.h5`` boot is ported: a ``retinanet_weight_path``
-    with no file there raises ``OSError`` before the first step, as the JAX
-    package's h5py does (the boot from a file: tests/test_torch_hdf5.py)."""
+    before any train step runs: the mesh (A.9) and a checkpoint directory of
+    Orbax checkpoints (A.2). The Keras ``.h5`` boot is ported: a
+    ``retinanet_weight_path`` with no file there raises ``OSError`` before
+    the first step, as the JAX package's h5py does (the boot from a file:
+    tests/test_torch_hdf5.py). The serving export and the step tracer are
+    ported (tests/test_torch_train_options.py)."""
     monkeypatch.chdir(tmp_path)
     _, cfg = both_configs(tmp_path, world["datadir"])
     kw = UNPORTED[option]
