@@ -5,7 +5,7 @@ port builds, is right, and captions and trains on the GPU.
     python3 chip_smoke.py
 
 Phases, in the order they run, except that 14 runs between the kernel
-checks that open 13 and phase 11, and 15, 16 and 17 last (each prints one
+checks that open 13 and phase 11, and 15 to 18 last (each prints one
 line; any failure raises, so the script exits non-zero without its last
 line):
 
@@ -198,14 +198,42 @@ line):
      decode kernel at the corpus' max_seq_len × 2 × its launches a step. Each step prints its line with the
      card's name and power limit; export, load seconds, nodes and bytes of
      every program.
+ 18. several ranks (``fpn_mt_image_captioning_torch/parallel/``), last: one
+     pair of rank processes (``--phase18-rank``) on ``cuda:0`` over gloo
+     (NCCL refuses two ranks on one card), ``LOCAL_RANK`` 0 in each, as two
+     one-card hosts. (a) the sharded train step of the flagship in float32
+     (TF32 off), a global batch of 16, 3 steps, dropout 0.1, on meshes
+     (2, 1) and (1, 2), each held to one process's steps on the card (run
+     here first) at the JAX test's bar: losses rtol 1e-5, weights atol
+     2e-5, BatchNorm statistics rtol 1e-5, Adam's first moments at phase
+     15's gradient bar; the step walls beside one process's (the ranks
+     time-share the card: no scaling figure). (b) the sharded
+     ``predict_batch`` at (2, 1), bf16, fused, 8 images a rank, 60 steps:
+     the gathered sequences equal one process's on the same 8-image
+     batches, each decode kernel's launches a rank the steps × its count a
+     step (rank 0's are the ``parallel_launches`` of the kernel line), after
+     a warm-up call. After (a)'s 3 steps, one more step a mesh with its
+     collectives timed (the card synchronised before each): their seconds
+     and share of that step's wall. (c)
+     the ``train`` main under ``python -m torch.distributed.run
+     --nproc_per_node=2`` (``--phase18-train-main``; gloo, both ranks on
+     ``cuda:0``) over phase 15's 24 PNGs at 2+2 layers, mesh on, 2 epochs
+     with an evaluation each (CIDEr + epoch, so epoch 2 saves): both ranks
+     the same losses, disjoint equal shards covering the corpus, one log
+     directory, one result file, one checkpoint series. (d) a world of one
+     rank on NCCL here, an explicit 1 × 1 mesh: the sharded step against
+     ``train_step`` and the sharded beam search against ``beam_search``.
+     Its seconds (budget 180 s) on its last line.
 
 Then the kernel table as one JSON line (every kernel: the decode step's, the
 backbone's and the probes'; ``launches`` from the main path's runs,
 ``evaluate_launches`` from phase 13's, ``decode_modes_launches`` from phase
 14's counted runs, ``train_launches`` from phase 15's ``train`` main,
 ``backbones_launches`` from phase 16 (a)'s counted runs,
-``artifact_launches`` from phase 17 (a)'s request), the card's name and
-power limit, and ``{"ok": true, "device": {...}}`` as the last line.
+``artifact_launches`` from phase 17 (a)'s request, ``parallel_launches``
+from phase 18 (b)'s rank 0), the card's name and power limit, and
+``{"ok": true, "device": {...}}`` as the last line. ``--phase18-rank`` and
+``--phase18-train-main`` are phase 18's own worker modes.
 """
 
 from __future__ import annotations
@@ -3021,6 +3049,419 @@ def phase_17(fd, torch, build, Config, workdir) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: several ranks
+# ---------------------------------------------------------------------------
+P18_BATCH, P18_STEPS, P18_MESHES, P18_TIMEOUT = 16, 3, ((2, 1), (1, 2)), 170
+P18_MAIN_LAYERS, P18_ONE_BATCH = 2, 4
+
+
+def p18_batch():
+    import numpy as np
+
+    return train_batch(np.random.default_rng(1800), P18_BATCH, MAX_LEN)
+
+
+def p18_predict_images():
+    import numpy as np
+
+    return np.random.default_rng(1801).integers(0, 256, (P18_BATCH, SIZE, SIZE, 3),
+                                                dtype=np.uint8)
+
+
+def p18_train_config(Config, MeshConfig, mesh=None):
+    """The flagship in float32 at a global batch of 16 (dropout 0.1, the
+    default warm-up); ``mesh``: (data, model) or None."""
+    enabled = mesh is not None
+    data, model = mesh or (-1, 1)
+    return Config(batch_size=P18_BATCH, compute_dtype="float32",
+                  mesh=MeshConfig(enabled=enabled, data_axis_size=data, model_axis_size=model))
+
+
+def p18_reference(torch, dev, Config, Pipeline, tokenizer, workdir) -> dict:
+    """One process on the card: ``P18_STEPS`` flagship steps on the global
+    batch (the reference of (a): losses, weights, BatchNorm statistics,
+    Adam's first moments, written for the ranks), and ``predict_batch`` of
+    each rank's 8 images at beam 8, bf16 (the reference of (b))."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.config import MeshConfig
+    from fpn_mt_image_captioning_torch.models.layers import BatchNorm32
+
+    images, caps = p18_batch()
+    pipe = Pipeline(tokenizer, MAX_LEN, p18_train_config(Config, MeshConfig), seed=0, device=dev,
+                    checkpoint_path=str(Path(workdir) / "p18_reference"))
+    walls, losses = [], []
+    for _ in range(P18_STEPS):
+        t0 = time.perf_counter()
+        losses.append(pipe.train_step(images, caps))
+        walls.append(time.perf_counter() - t0)
+    model = pipe.state.model
+    torch.save({"losses": losses,
+                "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                "stats": {n: b.cpu() for n, b in model.named_buffers()},
+                "m": [t.cpu() for t in pipe.state.opt_state.m]},
+               Path(workdir) / "p18_reference.pt")
+    del pipe, model
+    served = Pipeline(tokenizer, MAX_LEN, Config(beam_search_n=BEAM, compute_dtype="bfloat16",
+                                                 decode_batch=P18_BATCH), seed=0, device=dev)
+    pimgs = p18_predict_images()
+    half = P18_BATCH // 2
+    parts = [served.predict_batch(pimgs[:half]), served.predict_batch(pimgs[half:])]
+    np.savez(Path(workdir) / "p18_reference.npz", seqs=np.concatenate([p[0] for p in parts]),
+             lengths=np.concatenate([p[1] for p in parts]))
+    del served
+    torch.cuda.empty_cache()
+    return {"step_s": statistics.median(walls), "step_s_runs": walls, "losses": losses}
+
+
+def p18_compare_step(torch, pipe, ref: dict) -> dict:
+    """(a)'s bar, the JAX test's (tests/test_parallel.py:141-145): the
+    loss of every step within rtol 1e-5, every weight within atol 2e-5; the
+    BatchNorm statistics within rtol 1e-5, atol 1e-6; Adam's first moments
+    per tensor within 5e-2·(‖ref‖ + 1e-3·max‖ref‖), median 1e-2 (phase 15's
+    bar between float32 gradients on the card and the CPU: training-mode
+    BatchNorm makes them that ill-conditioned, and the ranks sum the
+    moments in another order). Collective: every rank calls it; the whole
+    weights are compared on rank 0."""
+    from fpn_mt_image_captioning_torch.parallel.multihost import rank
+    from fpn_mt_image_captioning_torch.parallel.train import whole_state_dict
+
+    whole = whole_state_dict(pipe.state.model)
+    m = pipe._whole(pipe.state.opt_state.m)
+    if rank() != 0:
+        return {}
+    for got, want in zip(pipe.train_loss_history, ref["losses"]):
+        if not math.isclose(got, want, rel_tol=1e-5):
+            raise SmokeFailure(f"sharded losses {pipe.train_loss_history} vs {ref['losses']}")
+    weight_dev = max(float((whole[n].cpu() - p).abs().max()) for n, p in ref["params"].items())
+    if weight_dev > 2e-5:
+        raise SmokeFailure(f"sharded weights: max |Δ| {weight_dev}")
+    for n, b in ref["stats"].items():
+        close(f"BatchNorm {n}", whole[n].cpu(), b, 1e-6, 1e-5)
+    norms = [float(t.norm()) for t in ref["m"]]
+    errs = [float((g.cpu() - t).norm()) / (nt + 1e-3 * max(norms))
+            for g, t, nt in zip(m, ref["m"], norms)]
+    if max(errs) > 5e-2 or statistics.median(errs) > 1e-2:
+        raise SmokeFailure(f"sharded Adam moments: max {max(errs)}, median "
+                           f"{statistics.median(errs)}")
+    return {"weight_dev_max": weight_dev, "moment_rel_err_max": max(errs),
+            "moment_rel_err_median": statistics.median(errs)}
+
+
+def timed_collectives(torch, fn) -> tuple[float, float, int]:
+    """``(wall s, s inside all_reduce/all_gather, their calls)`` of ``fn()``.
+    The card is synchronised before each collective and after ``fn``, so a
+    collective's time is its own (gloo stages CUDA tensors through the host
+    and returns when done), not the compute it would wait for; ``fn`` runs
+    as much slower as those synchronisations cost."""
+    dist = torch.distributed
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    spent = [0.0, 0]
+
+    def timed(f):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return out
+        return call
+
+    for name, f in real.items():
+        setattr(dist, name, timed(f))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, f in real.items():
+            setattr(dist, name, f)
+    return wall, spent[0], spent[1]
+
+
+def phase18_rank(workdir: str) -> None:
+    """A rank of phase 18's pair (``python3 chip_smoke.py --phase18-rank
+    WORKDIR`` with the launcher's environment; both ranks on ``cuda:0`` over
+    gloo). (a) the sharded step on meshes (2, 1) and (1, 2); (b) the sharded
+    ``predict_batch`` at (2, 1). Writes ``p18_rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fpn_mt_image_captioning_torch.config import Config, MeshConfig
+    from fpn_mt_image_captioning_torch.data.tokenizer import REFERENCE_FILTERS, Tokenizer
+    from fpn_mt_image_captioning_torch.ops import fused_decoder as fd
+    from fpn_mt_image_captioning_torch.parallel import multihost as mh
+    from fpn_mt_image_captioning_torch.train.pipeline import Pipeline, resolve_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not mh.maybe_initialize(backend="gloo"):
+        raise SmokeFailure("phase 18 rank: no launcher environment")
+    rank, world = mh.rank(), mh.world_size()
+    dev = resolve_device(None)   # cuda:LOCAL_RANK
+    tokenizer = synthetic_tokenizer(Tokenizer, REFERENCE_FILTERS)
+    ref = torch.load(Path(workdir) / "p18_reference.pt")
+    images, caps = p18_batch()
+    n = P18_BATCH // world
+    out = {"rank": rank, "device": str(dev)}
+    for mesh in P18_MESHES:
+        pipe = Pipeline(tokenizer, MAX_LEN, p18_train_config(Config, MeshConfig, mesh), seed=0,
+                        device=dev, checkpoint_path=str(Path(workdir) / f"p18_ckpt{rank}"))
+        walls = []
+        for _ in range(P18_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.train_step(images[rank * n:(rank + 1) * n], caps[rank * n:(rank + 1) * n])
+            walls.append(time.perf_counter() - t0)
+        name = f"{mesh[0]}x{mesh[1]}"
+        out[name] = {"step_s": statistics.median(walls), "step_s_runs": walls,
+                     "losses": pipe.train_loss_history,
+                     "sharded_parameters": sum(d is not None for d in pipe._placements.values()),
+                     **p18_compare_step(torch, pipe, ref)}
+        # one more step with its collectives timed (after the comparison)
+        wall, spent, calls = timed_collectives(torch, lambda: pipe.train_step(
+            images[rank * n:(rank + 1) * n], caps[rank * n:(rank + 1) * n]))
+        out[name].update(timed_step_s=wall, collectives_s=spent, collective_calls=calls,
+                         collectives_share=spent / wall)
+        del pipe
+        torch.cuda.empty_cache()
+    served = Pipeline(tokenizer, MAX_LEN, Config(beam_search_n=BEAM, compute_dtype="bfloat16",
+                                                 decode_batch=P18_BATCH,
+                                                 mesh=MeshConfig(enabled=True)),
+                      seed=0, device=dev)
+    pimgs = p18_predict_images()[rank * n:(rank + 1) * n]
+    served.predict_batch(pimgs)   # warm-up: the first call loads the kernels' libraries
+    reset_all_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, lengths = served.predict_batch(pimgs)
+    wall = time.perf_counter() - t0
+    counts = read_all_counts()
+    steps = fd.decoder_logsoftmax_topk.launches
+    check_decode_counts(fd, decode_per_step(fd), steps)
+    seqs, lengths = mh.gather_rows(seqs), mh.gather_rows(lengths)
+    if rank == 0:
+        want = np.load(Path(workdir) / "p18_reference.npz")
+        if not (np.array_equal(seqs, want["seqs"]) and np.array_equal(lengths, want["lengths"])):
+            raise SmokeFailure("phase 18 (b): the sharded predict_batch differs from one "
+                               "process's")
+    out["predict"] = {"wall_s": wall, "decode_steps": steps, "launches": counts,
+                      "rows": int(n), "sequences_equal": True}
+    (Path(workdir) / f"p18_rank{rank}.json").write_text(json.dumps(out))
+    mh.barrier("phase18_done")
+    torch.distributed.destroy_process_group()
+
+
+def phase18_train_main(workdir: str) -> None:
+    """A rank of (c): ``python -m torch.distributed.run --nproc_per_node=2
+    chip_smoke.py --phase18-train-main WORKDIR``. The ``train`` main over
+    phase 15's corpus (24 PNGs, 16 for validation) at 2+2 layers, mesh on,
+    gloo (two ranks share the card), 2 epochs with an evaluation each;
+    CIDEr is the real ``MetricEval``'s plus the epoch number, so that epoch 2
+    saves a checkpoint. Writes ``p18_main_rank<r>.json``."""
+    import contextlib
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fpn_mt_image_captioning_torch.config import Config, MeshConfig
+    from fpn_mt_image_captioning_torch.data.dataset import get_coco_images_dataset
+    from fpn_mt_image_captioning_torch.data.metrics import MetricEval
+    from fpn_mt_image_captioning_torch.parallel import multihost as mh
+    from fpn_mt_image_captioning_torch.train.__main__ import main as train_main
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the launcher numbers the ranks' cards 0 and 1; this machine has one,
+    # so both take cuda:0, as two one-card hosts would
+    os.environ["LOCAL_RANK"] = "0"
+    mh.maybe_initialize(backend="gloo")
+    rank = mh.rank()
+    src, root = Path(workdir) / "train_main", Path(workdir) / "p18_main"
+    root.mkdir(exist_ok=True)
+    cfg = Config(datadir=str(src / "data"), epochs=2, batch_size=10, n_epoch_to_evaluate=1,
+                 n_val_dataset=TRAIN_MAIN_VAL, warm_up_steps=TRAIN_WARMUP,
+                 num_layers=P18_MAIN_LAYERS, mesh=MeshConfig(enabled=True),
+                 tokenizer_filename=str(src / "tokenizer.json"),
+                 additional_filename=str(root / "info.json"),
+                 transformer_checkpoint_path=str(root / "ckpt"),
+                 transformer_weight_path=str(root / "weights.msgpack"),
+                 result_dir=str(root / "results"))
+    real, scored = MetricEval.__call__, []
+
+    def epoch_scored(self, path):
+        scored.append(real(self, path))
+        return scored[-1] + len(scored)
+
+    MetricEval.__call__ = epoch_scored
+    t0 = time.perf_counter()
+    with contextlib.chdir(root), contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        master = train_main(cfg)
+    wall = time.perf_counter() - t0
+    dataset, _, _ = get_coco_images_dataset(cfg.datadir, cfg.datatype_train, config=cfg)
+    (root / f"rank{rank}.json").write_text(json.dumps({
+        "losses": master.train_loss_history, "wall_s": wall, "device": str(master.device),
+        "shard": [os.path.basename(p) for p in dataset.img_paths],
+        "ckpt_steps": master.ckpt_manager.all_steps(), "cider": scored}))
+    mh.barrier("phase18_main_done")
+    torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def p18_run(cmds, timeout: float, what: str) -> None:
+    """Start the processes of ``cmds`` ((argv, env) pairs) together and wait
+    for all (``timeout`` seconds at most; killed on expiry); any nonzero exit
+    raises with the tail of its output."""
+    procs = [subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for argv, env in cmds]
+    t0 = time.perf_counter()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise SmokeFailure(f"phase 18 {what}: no end within {timeout} s")
+    bad = [(p.returncode, o[-4000:]) for p, o in zip(procs, outs) if p.returncode]
+    if bad:
+        raise SmokeFailure(f"phase 18 {what}: exit codes and output tails {bad}")
+
+
+def p18_world_of_one(torch, dev, Config, Pipeline, tokenizer, workdir) -> dict:
+    """(d) A world of one rank on NCCL with an explicit 1 × 1 mesh: three
+    sharded steps (``make_sharded_train_step``, the flagship in float32 at
+    batch 4, dropout 0.1) against three ``train_step``s from the same
+    weights: the first loss bitwise (lr(0) = 0 and a forward pass is
+    deterministic), every loss within rtol 1e-5 and every weight within
+    atol 2e-5 (the card's convolution gradients sum in another order run to
+    run, tests/test_torch_cuda_train.py); the sharded fused beam search
+    equals ``beam_search`` on 8 images bitwise."""
+    import numpy as np
+
+    from fpn_mt_image_captioning_torch.config import MeshConfig
+    from fpn_mt_image_captioning_torch.decode.beam_search import beam_search
+    from fpn_mt_image_captioning_torch.parallel.mesh import make_mesh
+    from fpn_mt_image_captioning_torch.parallel.train import (make_sharded_beam_search,
+                                                              make_sharded_train_step,
+                                                              shard_state)
+
+    dist = torch.distributed
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(MeshConfig(), "cuda")
+        images, caps = train_batch(np.random.default_rng(1802), P18_ONE_BATCH, MAX_LEN)
+        cfg = Config(batch_size=P18_ONE_BATCH, compute_dtype="float32")
+        plain, sharded = (Pipeline(tokenizer, MAX_LEN, cfg, seed=0, device=dev,
+                                   checkpoint_path=str(Path(workdir) / f"p18_one_{k}"))
+                          for k in ("plain", "sharded"))
+        state, placements = shard_state(mesh, sharded.state)
+        step = make_sharded_train_step(mesh, sharded.learning_rate, placements, seed=cfg.seed,
+                                       dropout_rate=cfg.dropout_rate)
+        want = [plain.train_step(images, caps) for _ in range(3)]
+        got = []
+        for _ in range(3):
+            state, loss = step(state, torch.as_tensor(images, device=dev),
+                               torch.as_tensor(caps.astype(np.int64), device=dev))
+            got.append(float(loss))
+        a, b = plain.state.model.named_parameters(), dict(state.model.named_parameters())
+        weight_dev = max(float((p - b[k]).abs().max()) for k, p in a)
+        if got[0] != want[0] or not all(math.isclose(x, y, rel_tol=1e-5)
+                                        for x, y in zip(got, want)) or weight_dev > 2e-5:
+            raise SmokeFailure(f"(d) sharded step: losses {got} vs {want}, weights max |Δ| "
+                               f"{weight_dev}")
+        enc = plain.encode(p18_predict_images()[:8])
+        kw = dict(beam_n=BEAM, max_len=MAX_LEN, start_token=plain.start_token,
+                  end_token=plain.end_token)
+        ws, wl, _ = beam_search(plain.transformer, enc, fused=True, packed=plain.packed, **kw)
+        gs, gl, _ = make_sharded_beam_search(mesh, plain.transformer, packed=plain.packed,
+                                             **kw)(enc)
+        if not (torch.equal(ws, gs) and torch.equal(wl, gl)):
+            raise SmokeFailure("(d) the sharded beam search differs from beam_search")
+        return {"backend": dist.get_backend(), "mesh": list(mesh.shape), "losses": got,
+                "one_process_losses": want, "weight_dev_max": weight_dev,
+                "beam_bitwise": True}
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_18(fd, torch, dev, Config, Pipeline, tokenizer, workdir) -> dict:
+    """Phase 18, several ranks: one pair of rank processes on ``cuda:0``
+    over gloo (``LOCAL_RANK`` 0 in each, as two one-card hosts; NCCL
+    refuses two ranks on one card) runs (a) and (b) against this process's
+    references; (c) the ``train`` main under ``torch.distributed.run``; (d)
+    a world of one rank on NCCL here. The two ranks time-share one card, so
+    no wall here is a scaling figure. Returns rank 0's decode launches of
+    (b)."""
+    t0 = time.perf_counter()
+    ref = p18_reference(torch, dev, Config, Pipeline, tokenizer, workdir)
+    me = str(Path(__file__).resolve())
+    port = free_port()
+    env = lambda r: {**os.environ, "RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+                     "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    p18_run([([sys.executable, me, "--phase18-rank", workdir], env(r)) for r in (0, 1)],
+            P18_TIMEOUT - (time.perf_counter() - t0), "(a, b) pair")
+    ranks = [json.loads((Path(workdir) / f"p18_rank{r}.json").read_text()) for r in (0, 1)]
+    for mesh in P18_MESHES:
+        name = f"{mesh[0]}x{mesh[1]}"
+        if ranks[0][name]["losses"] != ranks[1][name]["losses"]:
+            raise SmokeFailure(f"phase 18 (a) {name}: the ranks report other losses")
+    say("parallel_step", card=card_line(), batch=P18_BATCH, steps=P18_STEPS,
+        dtype="float32", tf32=False, one_process=ref,
+        **{f"mesh_{k}": ranks[0][k] for k in ("2x1", "1x2")},
+        rank1_step_s={k: ranks[1][k]["step_s"] for k in ("2x1", "1x2")},
+        note="two ranks time-share one card over gloo: no scaling figure")
+    say("parallel_predict", card=card_line(), mesh="2x1", global_batch=P18_BATCH, beam=BEAM,
+        dtype="bfloat16", **{f"rank{r}": {k: v for k, v in ranks[r]["predict"].items()
+                                           if k != "launches"} for r in (0, 1)},
+        launches_rank0={k: v for k, v in ranks[0]["predict"]["launches"].items() if v})
+    # (c) the train main under the launcher
+    t1 = time.perf_counter()
+    p18_run([([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+               "--master_addr=127.0.0.1", f"--master_port={free_port()}", me,
+               "--phase18-train-main", workdir], dict(os.environ))],
+            P18_TIMEOUT - (time.perf_counter() - t0), "(c) train main")
+    root = Path(workdir) / "p18_main"
+    mains = [json.loads((root / f"rank{r}.json").read_text()) for r in (0, 1)]
+    shards = [set(m["shard"]) for m in mains]
+    logs = os.listdir(root / "logs" / "transformer")
+    results = os.listdir(root / "results")
+    if mains[0]["losses"] != mains[1]["losses"] or not all(map(math.isfinite,
+                                                               mains[0]["losses"])):
+        raise SmokeFailure(f"phase 18 (c): losses {[m['losses'] for m in mains]}")
+    if len(shards[0]) != len(shards[1]) or shards[0] & shards[1] or \
+            len(shards[0] | shards[1]) != TRAIN_MAIN_IMAGES:
+        raise SmokeFailure(f"phase 18 (c): corpus shards {shards}")
+    if len(logs) != 1 or len(results) != 1 or mains[0]["ckpt_steps"] != [2] or \
+            mains[1]["ckpt_steps"] != [2] or not (root / "weights.msgpack").is_file():
+        raise SmokeFailure(f"phase 18 (c): logs {logs}, results {results}, checkpoints "
+                           f"{[m['ckpt_steps'] for m in mains]}")
+    say("parallel_train_main", card=card_line(), ranks=2, backend="gloo",
+        layers=P18_MAIN_LAYERS, wall_s=time.perf_counter() - t1,
+        main_wall_s=[m["wall_s"] for m in mains], losses=mains[0]["losses"],
+        shard_images=len(shards[0]), cider=mains[0]["cider"], checkpoint_steps=[2],
+        log_dirs=len(logs), result_files=results)
+    one = p18_world_of_one(torch, dev, Config, Pipeline, tokenizer, workdir)
+    say("parallel_world_of_one", card=card_line(), **one)
+    say("phase18", card=card_line(), seconds=time.perf_counter() - t0)
+    return ranks[0]["predict"]["launches"]
+
+
 def greedy_of(pipe, images):
     """``greedy_decode`` of ``images`` on ``pipe``'s weights, as numpy."""
     from fpn_mt_image_captioning_torch.decode.beam_search import greedy_decode
@@ -3032,6 +3473,12 @@ def greedy_of(pipe, images):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--phase18-rank"]:
+        phase18_rank(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--phase18-train-main"]:
+        phase18_train_main(sys.argv[2])
+        return 0
     try:
         import torch
     except ImportError:
@@ -3120,6 +3567,8 @@ def main() -> int:
                                     workdir)
         torch.cuda.empty_cache()
         artifact_counts_ = phase_17(fd, torch, build, Config, workdir)
+        torch.cuda.empty_cache()
+        parallel_counts = phase_18(fd, torch, dev, Config, Pipeline, tokenizer, workdir)
     eval_counts["fused_ir_block"] = fused_eval_counts["fused_ir_block"]
 
     counts.update(probe_counts)
@@ -3142,7 +3591,8 @@ def main() -> int:
                         "decode_modes_launches": modes_counts[k.__name__],
                         "train_launches": train_counts[k.__name__],
                         "backbones_launches": backbones_counts[k.__name__],
-                        "artifact_launches": artifact_counts_[k.__name__]})
+                        "artifact_launches": artifact_counts_[k.__name__],
+                        "parallel_launches": parallel_counts[k.__name__]})
     say("timing", **TIMING)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,7 +4,9 @@
 ``CocoCaptionDataset`` with its buffered shuffle, ``DecodedImageCache``,
 ``_Prefetcher``), the validation iterators (``COCO_Images_ImageID``,
 ``get_coco_images_captions_generator``) and the additional-info sidecar.
-One process: sharding the corpus over processes is not ported.
+Over several processes each reads its own shard of the corpus
+(``parallel.multihost.process_shard``): the training shards are strided and
+of equal length, the validation shards strided over one shuffled order.
 
 Parity with the reference's data layer: captions wrapped ``<start> ...
 <end>`` and empty (``' '``) captions dropped; the tokenizer fit on the
@@ -281,8 +283,17 @@ class CocoCaptionDataset:
         num_workers: int = 16,
         cache_path: str | None = None,
         as_uint8: bool = False,
+        shard_count: int = 1,
+        shard_index: int = 0,
     ):
         assert len(img_paths) == len(captions_token)
+        if shard_count > 1:
+            # equal-length shards: every rank must take as many (collective)
+            # train steps an epoch, so the strided shards are all cut to the
+            # shortest (fewer than shard_count examples go unused)
+            n_equal = len(img_paths) // shard_count
+            img_paths = img_paths[shard_index::shard_count][:n_equal]
+            captions_token = captions_token[shard_index::shard_count][:n_equal]
         self.img_paths = img_paths
         self.captions_token = captions_token
         self.batch_size = batch_size
@@ -294,6 +305,8 @@ class CocoCaptionDataset:
         self._epoch = 0
         self._cache = None
         if cache_path:
+            if shard_count > 1:   # each shard caches its own images
+                cache_path = f"{cache_path}.shard{shard_index}of{shard_count}"
             self._cache = DecodedImageCache(
                 cache_path, img_paths, image_size, num_workers
             )
@@ -345,10 +358,13 @@ def get_coco_images_dataset(
 ):
     """Build the training dataset. Returns ``(dataset, max_seq_len, set_len)``.
 
-    Parity port of reference ``get_coco_images_dataset`` (``dataset.py:29-94``);
-    one process. The dataset yields uint8 images: the model normalizes them on
-    the device.
+    Parity port of reference ``get_coco_images_dataset`` (``dataset.py:29-94``).
+    Over several processes the dataset is this process' shard
+    (``process_shard``); the primary alone stores a tokenizer it fits. The
+    dataset yields uint8 images: the model normalizes them on the device.
     """
+    from ..parallel.multihost import barrier, is_primary, process_shard
+
     cfg = config or Config()
     annFile = f"{dataDir}/annotations/captions_{dataType}.json"
     coco = COCO(annFile)
@@ -369,8 +385,12 @@ def get_coco_images_dataset(
         )
         tokenizer.fit_on_texts(captions)
         tokenizer.add_padding_token()
-        tokenizer_file.parent.mkdir(parents=True, exist_ok=True)
-        store_tokenizer_to_path(tokenizer, cfg.tokenizer_filename)
+        if is_primary():   # every rank fits the same one; one writes it
+            tokenizer_file.parent.mkdir(parents=True, exist_ok=True)
+            tmp = f"{cfg.tokenizer_filename}.tmp"
+            store_tokenizer_to_path(tokenizer, tmp)
+            os.replace(tmp, cfg.tokenizer_filename)
+    barrier("tokenizer")   # the file exists for every rank's pipeline after this
 
     # punctuation spacing applied AFTER fit — reference quirk (dataset.py:73)
     captions = [re.sub(r"([.,])", r" \1 ", caption) for caption in captions]
@@ -385,6 +405,7 @@ def get_coco_images_dataset(
         os.path.join(dataDir, "images", dataType, img["file_name"]) for img in imgs
     ]
 
+    shard_index, shard_count = process_shard()
     dataset = CocoCaptionDataset(
         img_paths,
         captions_token,
@@ -396,6 +417,8 @@ def get_coco_images_dataset(
         # raw uint8 rows: the train forward normalizes on the device
         # (models/layers.py:normalize_images), 4× fewer bytes per step
         as_uint8=True,
+        shard_count=shard_count,
+        shard_index=shard_index,
     )
     return dataset, max_seq_len, set_len
 
@@ -422,20 +445,28 @@ def get_coco_images_captions_generator(dataDir: str, dataType: str,
 class COCO_Images_ImageID:
     """Shuffled validation iterator yielding ``(img [S,S,3], imgId)`` one at a
     time, truncated to ``n_val`` (one id per caption, as in the JAX package),
-    and ``iter_batches`` for batched decode. Sharding the ids over processes
-    is not ported."""
+    and ``iter_batches`` for batched decode. ``shard_count``/``shard_index``:
+    a process' strided shard of the shuffled, truncated ids (the shards may
+    differ in length by one; ``Pipeline.evaluate`` decodes them in lock
+    step); sharded without a ``seed``, every process shuffles with seed 0,
+    so the shards are disjoint and cover the split."""
 
     def __init__(self, dataDir: str, dataType: str, n_val: int | None = None,
-                 image_size: int = 512, seed: int | None = None):
+                 image_size: int = 512, seed: int | None = None,
+                 shard_count: int = 1, shard_index: int = 0):
         self.dataDir = dataDir
         self.dataType = dataType
         self.image_size = image_size
         self.coco = COCO(f"{dataDir}/annotations/captions_{dataType}.json")
         anns = [a for a in self.coco.loadAnns(self.coco.getAnnIds()) if a["caption"] != " "]
         self.imgIds = [a["image_id"] for a in anns]
+        if shard_count > 1 and seed is None:
+            seed = 0
         Random(seed).shuffle(self.imgIds)
         self.max_len = len(self.imgIds) if n_val is None else n_val
         self.imgIds = self.imgIds if n_val is None else self.imgIds[:n_val]
+        if shard_count > 1:
+            self.imgIds = self.imgIds[shard_index::shard_count]
         self.max_len = min(self.max_len, len(self.imgIds))
         self.iterIndex = 0
 

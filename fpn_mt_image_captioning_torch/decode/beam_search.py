@@ -298,12 +298,14 @@ def sample_decode(
     top_p=None,                      # scalar or (B,); None omits the nucleus sort
     noise: torch.Tensor | None = None,  # (max_len, B, V) Gumbel noise in place of generator's
     fixed_steps: bool = False,       # run all max_len steps; never read the stop flag on the host
+    rows: tuple[int, int] | None = None,  # (first row, global rows): this rank's share
 ):
     """Ancestral sampling on the non-fused decode step, with the stripped
     return contract of ``beam_search``: (seqs (B, max_len) int32, lengths).
     A finished row emits pad (0); the loop stops when every row has
     finished (unless ``fixed_steps``), or after ``max_len`` tokens. Step
-    ``t`` draws its noise from ``generator`` (``decode.noise.gumbel``), or
+    ``t`` draws its noise from ``generator`` (``decode.noise.gumbel``; with
+    ``rows``, the global batch's noise and this rank's rows of it), or
     takes ``noise[t]``."""
     dev = enc_output.device
     batch = enc_output.shape[0]
@@ -317,7 +319,7 @@ def sample_decode(
     t = 0
     while t < max_len and (fixed_steps or not bool(finished.all())):
         logits, _ = model.decode_step(tokens, t, cache)      # no reorder: no ancestry
-        step_noise = gumbel(generator, logits.shape, dev) if noise is None else noise[t]
+        step_noise = gumbel(generator, logits.shape, dev, rows) if noise is None else noise[t]
         tokens = sample_tokens(logits, temperature, top_k, top_p, step_noise)
         tokens = torch.where(finished, 0, tokens)
         seqs[:, t] = tokens.to(torch.int32)

@@ -13,6 +13,11 @@ package's ``Pipeline.save_weights`` or of the port's training (see
 ``test.py``). This module does not train: ``--is_training=true`` raises and
 names ``python -m fpn_mt_image_captioning_torch.train``, the port's training
 leg of root ``train.py``.
+
+Several ranks (``python -m torch.distributed.run --nproc_per_node=N -m
+fpn_mt_image_captioning_torch.evaluate --mesh.enabled=true ...``): each rank
+captions its shard of the split, every rank gets the global result list,
+and the primary alone writes the result file and prints the scores.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import sys
 
 from .config import Config
 from .data.dataset import COCO_Images_ImageID
+from .parallel.multihost import is_primary, maybe_initialize, process_shard
 from .train.pipeline import Pipeline
 
 __all__ = ["main"]
@@ -35,11 +41,16 @@ def main(cfg: Config, *, device=None) -> list[dict]:
         raise NotImplementedError("evaluate.py does not train: train with python -m "
                                   "fpn_mt_image_captioning_torch.train, or evaluate with "
                                   "--is_training=false")
+    maybe_initialize(device)
+    shard_index, shard_count = process_shard()
     val_datasets = COCO_Images_ImageID(cfg.datadir, cfg.datatype_val, cfg.n_val_dataset,
-                                       image_size=cfg.image_input_size, seed=cfg.seed)
+                                       image_size=cfg.image_input_size, seed=cfg.seed,
+                                       shard_count=shard_count, shard_index=shard_index)
     pipeline = Pipeline.from_config(cfg, device=device)
     print("Evaluating...")
     results = pipeline.evaluate(iter(val_datasets))
+    if not is_primary():
+        return results
     os.makedirs(os.path.dirname(cfg.result_file) or ".", exist_ok=True)
     with open(cfg.result_file, "w") as outfile:
         json.dump(results, outfile)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel.collectives import group_rank, replicated_input, sum_partials
 from .layers import Dense, Dropout, dropout
 
 __all__ = ["MultiHeadAttention", "MultiViewAttention"]
@@ -38,7 +39,15 @@ class MultiViewAttention(nn.Module):
     context is ``0·Wv + bv``. The weights are cast to the baseline's dtype inside the
     op. While training, each view's output is dropped out after ``wo``/``bo``
     and before the sum, as the JAX module drops its stacked per-view
-    outputs."""
+    outputs.
+
+    Under tensor parallelism (``tp_group``) ``wq``/``bq`` hold this rank's
+    columns (its heads) and ``wo`` the matching rows; ``kv_w``/``kv_b``
+    come whole (the encoder gathers its sharded stack) and each rank takes
+    its heads' K and V columns; the views' partial outputs are summed over
+    the model group in one collective before ``bo``."""
+
+    tp_group = None
 
     def __init__(self, num_views: int, d_model: int, num_heads: int):
         super().__init__()
@@ -59,30 +68,49 @@ class MultiViewAttention(nn.Module):
         site: str = "mva",
     ) -> torch.Tensor:
         b, lq, d = baseline.shape
-        h = self.num_heads
-        dh = d // h
+        dh = d // self.num_heads
         dt = baseline.dtype
         wq, bq, wo, bo = (p.to(dt) for p in (self.wq, self.bq, self.wo, self.bo))
         kv_w, kv_b = kv_w.to(dt), kv_b.to(dt)
-        out = 0
+        g = self.tp_group
+        dl = wq.shape[-1]                         # this rank's width: its heads
+        if g is not None:
+            baseline = replicated_input(baseline, g)
+            sources = [replicated_input(x, g) for x in sources]
+            lo = group_rank(g) * dl
+            cols = torch.cat([torch.arange(lo, lo + dl), torch.arange(d + lo, d + lo + dl)])
+            cols = cols.to(kv_w.device)
+            kv_w, kv_b = kv_w[..., cols], kv_b[..., cols]
+        h = dl // dh
+        outs = []
         for vi, x in enumerate(sources):
             if x.shape[1] == 0:
-                ctx = kv_b[vi, d:].expand(b, lq, d)
-                out = out + dropout(ctx @ wo[vi] + bo[vi], drop, f"{site}.view_{vi}")
+                ctx = kv_b[vi, dl:].expand(b, lq, dl)
+                outs.append(ctx @ wo[vi])
                 continue
             q = (baseline @ wq[vi] + bq[vi]).reshape(b, lq, h, dh)
-            kv = x @ kv_w[vi] + kv_b[vi]                               # (B, Lv, 2d)
-            k = kv[..., :d].reshape(b, -1, h, dh)
-            v = kv[..., d:].reshape(b, -1, h, dh)
+            kv = x @ kv_w[vi] + kv_b[vi]                               # (B, Lv, 2dl)
+            k = kv[..., :dl].reshape(b, -1, h, dh)
+            v = kv[..., dl:].reshape(b, -1, h, dh)
             logits = torch.einsum("bqhe,blhe->bhql", q, k) * (1.0 / math.sqrt(dh))
             w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-            ctx = torch.einsum("bhql,blhe->bqhe", w, v).reshape(b, lq, d)
-            out = out + dropout(ctx @ wo[vi] + bo[vi], drop, f"{site}.view_{vi}")
+            ctx = torch.einsum("bhql,blhe->bqhe", w, v).reshape(b, lq, dl)
+            outs.append(ctx @ wo[vi])
+        if g is not None:
+            outs = sum_partials(torch.stack(outs), g).unbind(0)
+        out = 0
+        for vi, o in enumerate(outs):
+            out = out + dropout(o + bo[vi], drop, f"{site}.view_{vi}")
         return out
 
 
 class MultiHeadAttention(nn.Module):
-    """Multi-head attention with separate q/k/v/out projections."""
+    """Multi-head attention with separate q/k/v/out projections. Under
+    tensor parallelism (``tp_group``) q/k/v are column-parallel (this rank's
+    heads) and ``out`` row-parallel; each distinct input enters the sharded
+    projections through one ``replicated_input``."""
+
+    tp_group = None
 
     def __init__(self, d_model: int, num_heads: int):
         super().__init__()
@@ -96,7 +124,7 @@ class MultiHeadAttention(nn.Module):
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        return x.reshape(b, l, self.num_heads, self.depth)
+        return x.reshape(b, l, x.shape[-1] // self.depth, self.depth)
 
     def forward(
         self,
@@ -105,13 +133,17 @@ class MultiHeadAttention(nn.Module):
         v: torch.Tensor,  # (B, Lk, d)
         mask: Optional[torch.Tensor] = None,  # broadcastable to (B, H, Lq, Lk); 1.0 = disallow
     ):
+        if self.tp_group is not None:
+            seen = {}
+            q, k, v = (seen.setdefault(id(t), replicated_input(t, self.tp_group))
+                       for t in (q, k, v))
         qh, kh, vh = self._split(self.wq(q)), self._split(self.wk(k)), self._split(self.wv(v))
         logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * (1.0 / math.sqrt(self.depth))
         if mask is not None:
             logits = logits + (mask * NEG_INF_SCALE).to(logits.dtype)
         weights = torch.softmax(logits.float(), dim=-1).to(qh.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", weights, vh)
-        return self.out(ctx.reshape(q.shape[0], q.shape[1], self.d_model)), weights
+        return self.out(ctx.reshape(q.shape[0], q.shape[1], -1)), weights
 
     def project_kv(self, x: torch.Tensor):
         """Keys/values projected once, (B, L, H, D) each."""

@@ -1,6 +1,8 @@
 """Shared layer utilities: image normalization, activations, the float32
-LayerNorm and BatchNorm, the dense layer, TF-"SAME" convolutions, nearest
-upsampling, max and average pooling and training-mode dropout.
+LayerNorm and BatchNorm (with the global moments of a batch split over
+ranks), the dense layer (with its tensor-parallel shards), TF-"SAME"
+convolutions, nearest upsampling, max and average pooling and
+training-mode dropout.
 
 Port of ``fpn_mt_image_captioning_tpu/models/layers.py``. The vision stack of
 the port runs in PyTorch's NCHW layout, so ``upsample_like`` and
@@ -24,6 +26,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import sum_over, sum_partials
 
 __all__ = [
     "normalize_images",
@@ -97,7 +101,16 @@ class BatchNorm32(nn.Module):
     E[x²] − E[x]²`` clamped at 0 (``use_fast_variance``), that biased
     variance both to normalize and in the running update ``ra = m·ra +
     (1 − m)·batch`` with ``m = momentum`` (Keras' convention, the opposite of
-    ``F.batch_norm``'s, which also keeps an unbiased running variance)."""
+    ``F.batch_norm``'s, which also keeps an unbiased running variance).
+
+    Under data parallelism (``data_group``, set by
+    ``parallel.train.shard_state``) the training moments are those of the
+    global batch, as the JAX package's sharded step takes them: the sums of
+    x and x² and the count over the data group, with the gradient through
+    the sums (SyncBatchNorm's semantics), and the running statistics move
+    with those global moments on every rank."""
+
+    data_group = None
 
     def __init__(self, c: int, eps: float = 1e-3, momentum: float = 0.999):
         super().__init__()
@@ -115,8 +128,15 @@ class BatchNorm32(nn.Module):
                 cast(self.weight, f32), cast(self.bias, f32), False, 0.0, self.eps,
             ), x.dtype)
         x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.data_group is None:
+            mean = x32.mean(dim=(0, 2, 3))
+            mean_sq = (x32 * x32).mean(dim=(0, 2, 3))
+        else:
+            n = x32.new_full((1,), x32.numel() // x32.shape[1])
+            sums = sum_over(torch.cat([x32.sum(dim=(0, 2, 3)), (x32 * x32).sum(dim=(0, 2, 3)),
+                                       n]), self.data_group)
+            mean, mean_sq = (sums[:-1] / sums[-1]).chunk(2)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -127,9 +147,22 @@ class BatchNorm32(nn.Module):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` computing in the dtype of its input."""
+    """``nn.Linear`` computing in the dtype of its input.
+
+    Under tensor parallelism (``parallel.train.shard_state`` sets
+    ``tp_group`` and ``tp_row``) the weight is this rank's shard: a
+    column-parallel layer computes its slice of the outputs (the caller
+    passes its input through ``collectives.replicated_input``); a
+    row-parallel one (``tp_row``) sums its partial product over the model
+    group before the whole bias."""
+
+    tp_group = None
+    tp_row = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_row and self.tp_group is not None:
+            y = sum_partials(F.linear(x, cast(self.weight, x.dtype)), self.tp_group)
+            return y + cast(self.bias, x.dtype)
         return F.linear(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
@@ -220,10 +253,16 @@ class Dropout:
     the same masks, and a recompute under ``torch.utils.checkpoint`` (which
     restores only the global RNG, not this generator) draws the same mask as
     the forward it repeats. Kept values are scaled by ``1 / (1 - rate)``, as
-    ``flax.linen.Dropout`` scales them; the bits differ from JAX's threefry."""
+    ``flax.linen.Dropout`` scales them; the bits differ from JAX's threefry.
 
-    def __init__(self, rate: float, seed: int, step: int, device: torch.device):
-        self.rate, self.seed, self.step = rate, seed, step
+    ``rows``: ``(first row, rows of the global batch)`` where this rank holds
+    a share of a batch split over ranks: each site draws the mask of the
+    global batch and keeps this rank's rows, so the masks depend on neither
+    the rank nor the number of ranks."""
+
+    def __init__(self, rate: float, seed: int, step: int, device: torch.device,
+                 rows: tuple[int, int] | None = None):
+        self.rate, self.seed, self.step, self.rows = rate, seed, step, rows
         self.generator = torch.Generator(device=device)
 
     def site_seed(self, site: str) -> int:
@@ -235,7 +274,9 @@ class Dropout:
             return x
         keep = 1.0 - self.rate
         self.generator.manual_seed(self.site_seed(site))
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        first, total = self.rows or (0, x.shape[0])
+        mask = torch.rand((total, *x.shape[1:]), generator=self.generator,
+                          device=x.device)[first:first + x.shape[0]] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -28,6 +28,13 @@ embedding compute in (None: the weights' own, as after
 compute in float32 and the logits come out float32. ``remat_encoder`` runs
 each encoder layer under ``torch.utils.checkpoint`` while gradients are
 recorded.
+
+Tensor parallelism (``parallel.train.shard_state``): each module whose
+weights are sharded over the model group holds its group and its shard —
+the attentions their heads, the FFN its slice of dff, the final layer its
+slice of the vocabulary, the encoder its columns of the K/V stack — and
+issues the collectives of the Megatron rules itself
+(``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import gather_shards, replicated_input
 from .attention import MultiHeadAttention, MultiViewAttention
 from .feature_extractor import FeatureExtractor
 from .layers import Dense, Dropout, LayerNorm32, dropout, normalize_images, resolve_activation
@@ -47,7 +55,11 @@ __all__ = ["EncoderLayer", "DecoderLayer", "Encoder", "Decoder", "Transformer"]
 
 
 class _FFN(nn.Module):
-    """Dense(dff, act) → Dense(d_model)."""
+    """Dense(dff, act) → Dense(d_model); under tensor parallelism
+    (``tp_group``) ``ffn1`` column-parallel over dff and ``ffn2``
+    row-parallel."""
+
+    tp_group = None
 
     def __init__(self, d_model: int, dff: int, activation: str = "leaky_relu"):
         super().__init__()
@@ -56,6 +68,8 @@ class _FFN(nn.Module):
         self.act = resolve_activation(activation)
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = replicated_input(x, self.tp_group)
         return self.ffn2(self.act(self.ffn1(x)))
 
 
@@ -77,6 +91,10 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.Module):
+    # under tensor parallelism the group over which kv_proj/kv_bias are
+    # sharded: gathered whole once a forward, each layer takes its heads
+    kv_group = None
+
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dff: int,
                  input_vocab_size: int, num_pyramids: int = 5, baseline_index: int = 3,
                  backbone_name: str = "mobilenet224_1.0", n_conv_submodule: int = 2,
@@ -129,8 +147,12 @@ class Encoder(nn.Module):
             t = self.layernorm1(t) + pe.to(t.dtype)
             embedded.append(dropout(t, drop, f"encoder.dropout1_{k}"))
         baseline, sources = embedded[-1], embedded[:-1]
+        kv_proj, kv_bias = self.kv_proj, self.kv_bias
+        if self.kv_group is not None:
+            kv_proj = gather_shards(kv_proj, self.kv_group, -1, sum_grad=True)
+            kv_bias = gather_shards(kv_bias, self.kv_group, -1, sum_grad=True)
         for li in range(self.num_layers):
-            args = (baseline, sources, self.kv_proj[li], self.kv_bias[li], drop,
+            args = (baseline, sources, kv_proj[li], kv_bias[li], drop,
                     f"encoder.layer_{li}")
             layer = getattr(self, f"layer_{li}")
             if self.remat and torch.is_grad_enabled():
@@ -236,7 +258,12 @@ class Transformer(nn.Module):
     ``forward`` is the teacher-forced decoder over a precomputed encoder
     output (the reference's inference calling contract); ``forward_train``
     the training forward from the images; ``init_cache`` and ``decode_step``
-    the non-fused KV-cached decode."""
+    the non-fused KV-cached decode. Under tensor parallelism
+    (``vocab_group``) the final layer holds this rank's slice of the
+    vocabulary, and ``forward_train`` gathers the logits whole before the
+    loss."""
+
+    vocab_group = None
 
     def __init__(self, num_layers: int, d_model: int, num_heads: int, dff: int,
                  input_vocab_size: int, target_vocab_size: int, max_position: int = 0,
@@ -281,7 +308,11 @@ class Transformer(nn.Module):
         enc_output = self.encoder(images, train=True, drop=drop)
         dec_output, attention_weights = self.decoder(tar, enc_output, look_ahead_mask, None,
                                                      drop)
-        return self.final_layer(dec_output).float(), attention_weights
+        g = self.vocab_group
+        if g is None:
+            return self.final_layer(dec_output).float(), attention_weights
+        logits = self.final_layer(replicated_input(dec_output, g))
+        return gather_shards(logits, g, -1).float(), attention_weights
 
     def init_cache(self, enc_output: torch.Tensor, max_len: int) -> list[dict]:
         return self.decoder.init_cache(enc_output, max_len)

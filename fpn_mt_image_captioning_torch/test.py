@@ -21,6 +21,7 @@ import sys
 
 from .config import Config
 from .data.dataset import load_image
+from .parallel.multihost import is_primary, maybe_initialize
 from .train.pipeline import Pipeline
 
 __all__ = ["main"]
@@ -28,11 +29,15 @@ __all__ = ["main"]
 
 def main(cfg: Config, image_file_path: str, *, device=None) -> list[dict]:
     """Caption ``image_file_path``; ``device`` as for ``Pipeline`` (the card
-    unless ``"cpu"`` is asked for)."""
+    unless ``"cpu"`` is asked for). In a launched world of ranks (with the
+    mesh) every rank captions the image and the primary writes the file."""
+    maybe_initialize(device)
     pipeline = Pipeline.from_config(cfg, device=device)
     print("Evaluating...")
     img, _ = load_image(image_file_path, None, cfg.image_input_size)
     results = pipeline.evaluate_img(img)
+    if not is_primary():
+        return results
 
     out = os.path.join(cfg.result_dir,
                        os.path.basename(image_file_path).split(".")[0] + "_captions_result.json")

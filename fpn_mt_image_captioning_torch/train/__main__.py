@@ -28,10 +28,26 @@ activities, ``*.pt.trace.json``).
 
 Without a checkpoint to restore, the pipeline boots its feature extractor
 from the Keras ``.h5`` file ``retinanet_weight_path`` where one is given (a
-missing file raises ``OSError`` before any step). Before any step it raises
-for what is not ported: ``mesh.enabled``, and a checkpoint directory of
-Orbax checkpoints. ``--is_training=false`` runs the evaluation of
+missing file raises ``OSError`` before any step). A checkpoint directory of
+Orbax checkpoints raises before any step (reading them is not ported).
+``--is_training=false`` runs the evaluation of
 ``fpn_mt_image_captioning_torch.evaluate``.
+
+Several ranks, one process a card (NCCL; gloo with ``device="cpu"``)::
+
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m fpn_mt_image_captioning_torch.train --mesh.enabled=true \
+        [--mesh.model_axis_size=M] [any Config --key=value]
+
+``maybe_initialize`` brings up the process group from the launcher's
+environment; each rank trains on its shard of the corpus and evaluates its
+shard of the validation split (``Pipeline.evaluate`` returns the global
+result list on every rank). The primary rank alone writes the result file,
+the logs, the sidecar, the checkpoints and the weight file; CIDEr is
+computed there and shared (a barrier, then ``gather_rows``), so every rank
+takes the same checkpoint and early-stop decision. A mesh run exports no
+serving artifact (an artifact is one card's program: export from the weight
+file).
 """
 
 from __future__ import annotations
@@ -48,8 +64,10 @@ from ..data.dataset import (COCO_Images_ImageID, get_coco_images_dataset, load_a
                             store_additional_info)
 from ..export import export_serving
 from ..utils.profiling import StepTracer
+from ..parallel.multihost import (barrier, gather_rows, is_primary, maybe_initialize,
+                                  process_shard, world_size)
 from ..utils.tensorboard import ScalarLogger, SummaryWriter
-from .pipeline import Pipeline, refuse_unported_training_options
+from .pipeline import Pipeline
 
 __all__ = ["main"]
 
@@ -64,6 +82,26 @@ def pad_batch(img: np.ndarray, caption_token: np.ndarray, batch_size: int):
                             np.zeros((pad, caption_token.shape[1]), caption_token.dtype)]))
 
 
+class _NoLog:
+    """The logs of a rank that is not the primary."""
+
+    def scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def shared_cider(master: Pipeline, result_file: str) -> float:
+    """CIDEr of ``result_file``: computed by the primary rank and shared
+    with every rank (in one process, computed)."""
+    if world_size() == 1:
+        return master.metric_eval(result_file)
+    local = np.array([master.metric_eval(result_file) if is_primary() else 0.0], np.float64)
+    barrier("cider_share")
+    return float(gather_rows(local)[0])
+
+
 def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
     """Train (or, with ``is_training`` false, evaluate); ``device`` as for
     ``Pipeline`` (the card unless ``"cpu"`` is asked for). Returns the
@@ -72,9 +110,11 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
         from ..evaluate import main as evaluate_main
 
         return evaluate_main(cfg, device=device)
-    refuse_unported_training_options(cfg)
+    maybe_initialize(device)
+    shard_index, shard_count = process_shard()
     val_datasets = COCO_Images_ImageID(cfg.datadir, cfg.datatype_val, cfg.n_val_dataset,
-                                       image_size=cfg.image_input_size, seed=cfg.seed)
+                                       image_size=cfg.image_input_size, seed=cfg.seed,
+                                       shard_count=shard_count, shard_index=shard_index)
     additional_info = load_additional_info(cfg.additional_filename)
     key_epoch = "mt_epoch_" + os.path.basename(cfg.transformer_checkpoint_path)
 
@@ -83,11 +123,15 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
     master = Pipeline(cfg.tokenizer_filename, max_seq_len, cfg, device=device,
                       checkpoint_path=cfg.transformer_checkpoint_path)
     additional_info["max_seq_len"] = max_seq_len
-    store_additional_info(additional_info, cfg.additional_filename)
+    if is_primary():
+        store_additional_info(additional_info, cfg.additional_filename)
 
     log_dir = f"logs/transformer/{datetime.now().strftime('%Y%m%d-%H%M%S')}/train"
-    writer = SummaryWriter(log_dir)
-    jsonl = ScalarLogger(os.path.join(log_dir, "scalars.jsonl"))
+    if is_primary():
+        writer, jsonl = SummaryWriter(log_dir), ScalarLogger(os.path.join(log_dir,
+                                                                          "scalars.jsonl"))
+    else:
+        writer = jsonl = _NoLog()
 
     start_epoch = 0
     if master.ckpt_manager.latest_step is not None:
@@ -128,11 +172,12 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
                         print(f"BN stats finalized over {used} train batches")
                     print("Evaluating...")
                     results = master.evaluate(iter(val_datasets))
-                    os.makedirs(os.path.dirname(cfg.result_file) or ".", exist_ok=True)
-                    with open(cfg.result_file, "w") as outfile:
-                        json.dump(results, outfile)
+                    if is_primary():
+                        os.makedirs(os.path.dirname(cfg.result_file) or ".", exist_ok=True)
+                        with open(cfg.result_file, "w") as outfile:
+                            json.dump(results, outfile)
                     if results:
-                        cider = master.metric_eval(cfg.result_file)
+                        cider = shared_cider(master, cfg.result_file)
                         writer.scalar("CIDEr", cider, epoch)
                         jsonl.scalar("CIDEr", cider, epoch)
                         should_break = master.smart_ckpt_saver(epoch + 1, cider, master.state_tree)
@@ -140,7 +185,8 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
                             break
                         elif should_break == 1:
                             additional_info[key_epoch] = master.smart_ckpt_saver.max_acc_epoch
-                            store_additional_info(additional_info, cfg.additional_filename)
+                            if is_primary():
+                                store_additional_info(additional_info, cfg.additional_filename)
                 print()
         finally:
             if tracer is not None:
@@ -160,7 +206,10 @@ def main(cfg: Config, *, device=None) -> Pipeline | list[dict]:
         if restored is not None:
             master.load_state_tree(restored)
         master.save_weights(cfg.transformer_weight_path)
-        if cfg.export_artifact_dir:
+        if cfg.export_artifact_dir and master.mesh is not None:
+            print("export_artifact_dir: skipped (a mesh run; an artifact is one card's "
+                  "program: export from the weight file with --mesh.enabled=false)")
+        elif cfg.export_artifact_dir and is_primary():
             # the weights are saved above: a failed export must not turn a
             # finished training run into a failure
             try:

@@ -7,9 +7,13 @@ the oldest steps) over files of the port's own: one Flax msgpack file of the
 training-state tree (``weights.train_state_to_flax``: the JAX ``TrainState``
 layout) per step directory, ``<directory>/<step>/train_state.msgpack``,
 written to a temporary name and renamed, so a step directory holds a whole
-file or none. The JAX package's checkpoints are Orbax stores (OCDBT + zstd),
-which the port does not read: a directory holding one raises, and never
-starts afresh in its place.
+file or none. Over several ranks a save is collective: every rank calls it
+with the whole tree (``Pipeline.state_tree`` gathers the tensor-parallel
+shards), the primary writes, and every rank meets at a barrier after it; a
+restore reads the whole tree on every rank, which keeps its shards
+(``Pipeline.load_state_tree``). The JAX package's checkpoints are Orbax
+stores (OCDBT + zstd), which the port does not read: a directory holding one
+raises, and never starts afresh in its place.
 
 ``SmartCheckpointSaver`` is the JAX state machine unchanged:
 
@@ -32,6 +36,7 @@ from typing import Any
 
 import numpy as np
 
+from ..parallel.multihost import barrier, is_primary
 from ..weights import read_flax_msgpack, write_flax_msgpack
 
 __all__ = ["CheckpointManager", "SmartCheckpointSaver", "STATE_FILE"]
@@ -98,12 +103,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: Mapping) -> None:
-        os.makedirs(os.path.dirname(self._path(step)), exist_ok=True)
-        tmp = self._path(step) + ".tmp"
-        write_flax_msgpack(tmp, state)
-        os.replace(tmp, self._path(step))
-        for old in self.all_steps()[: -self.max_to_keep or None]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        if is_primary():
+            os.makedirs(os.path.dirname(self._path(step)), exist_ok=True)
+            tmp = self._path(step) + ".tmp"
+            write_flax_msgpack(tmp, state)
+            os.replace(tmp, self._path(step))
+            for old in self.all_steps()[: -self.max_to_keep or None]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        barrier("checkpoint_save")
 
     def restore(self, state_template: Mapping, step: int | None = None) -> Any:
         """The tree saved at ``step`` (default: the latest; None when there

@@ -9,7 +9,8 @@
 * ``custom_schedule_rough`` — the reference's three-segment schedule, off
   the training path (inventory).
 * ``clip_by_per_variable_norm_`` — Keras ``clipnorm``: each gradient is
-  clipped by its own L2 norm (``max(norm, 1e-12)``), not by the global one.
+  clipped by its own L2 norm (``max(norm, 1e-12)``), not by the global one;
+  a tensor-parallel shard by the norm of its whole variable.
 * ``keras_adam_`` — Adam with AMSGrad in Keras's formulation: the schedule
   read at the count before the increment, ``alpha = lr·sqrt(1 − b2^t)/(1 −
   b1^t)``, the AMSGrad maximum over the uncorrected ``v``, ``eps`` added to
@@ -19,6 +20,7 @@
 
 The tensor updates run as ``torch._foreach_*`` calls over the parameter
 list, a few launches a step on the card whatever the number of tensors.
+AMSGrad is elementwise, so it runs unchanged on tensor-parallel shards.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import sum_over
 
 __all__ = ["custom_schedule", "custom_schedule_rough", "clip_by_per_variable_norm_",
            "KerasAdamState", "keras_adam_init", "keras_alpha", "keras_adam_"]
@@ -70,11 +74,21 @@ def custom_schedule_rough(ratio_x1: float = 5, ratio_x2: float = 2, ratio_x3: fl
 
 
 @torch.no_grad()
-def clip_by_per_variable_norm_(grads: list[torch.Tensor], max_norm: float = 1.0) -> None:
+def clip_by_per_variable_norm_(grads: list[torch.Tensor], max_norm: float = 1.0,
+                               sharded: list[bool] | None = None, model_group=None) -> None:
     """Scale each gradient in place to at most ``max_norm`` by its own norm.
     The scales come to the host once (one synchronisation), so the scaling
-    is one ``_foreach`` call whatever the number of tensors."""
+    is one ``_foreach`` call whatever the number of tensors.
+
+    Under tensor parallelism a gradient marked in ``sharded`` is this rank's
+    shard of its variable: its norm is the whole variable's, the square
+    root of its squared norm summed over ``model_group`` (one collective for
+    all of them)."""
     norms = torch.stack(torch._foreach_norm(grads))
+    if model_group is not None and sharded is not None and any(sharded):
+        mask = torch.tensor(sharded, device=norms.device)
+        whole = sum_over(torch.where(mask, norms * norms, 0.0), model_group).sqrt()
+        norms = torch.where(mask, whole, norms)
     scales = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
     torch._foreach_mul_(grads, scales.tolist())
 

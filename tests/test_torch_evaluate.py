@@ -149,15 +149,17 @@ def test_from_config_refuses_orbax_without_weights(world):
 
 def test_metric_eval_is_built_on_first_use(world, monkeypatch):
     """A pipeline starts without a dataset; ``metric_eval`` reads it only
-    when asked; evaluating across processes is refused."""
+    when asked; evaluating across processes needs a batched iterator (each
+    rank's shard decodes in lock step: tests/test_torch_parallel_world.py)."""
     cfg = world["cfg"].replace(datadir=str(world["root"] / "no_such_dir"))
     pipe = Pipeline(cfg.tokenizer_filename, 8, cfg, seed=1, device="cpu")
     with pytest.raises(FileNotFoundError):
         pipe.metric_eval
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    with pytest.raises(NotImplementedError, match="several ranks needs a batched iterator"):
         pipe.evaluate([])
+    monkeypatch.undo()   # in one process again (several ranks without a mesh refuse to decode)
     assert np.asarray(pipe.predict_batch(world["images"][:1])[0]).shape == (1, 8)
 
 

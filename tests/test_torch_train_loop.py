@@ -374,7 +374,7 @@ def test_train_main_two_epochs(world, tmp_path, monkeypatch, capsys):
 
 
 UNPORTED = {
-    "mesh": dict(mesh=PtMeshConfig(enabled=True)),
+    "mesh": dict(mesh=PtMeshConfig(enabled=True, model_axis_size=2)),
     "retinanet_weight_path": dict(retinanet_weight_path="retinanet.h5"),
     "orbax": {},
 }
@@ -382,9 +382,11 @@ UNPORTED = {
 
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypatch, option):
-    """Each option the port does not have raises ``NotImplementedError``
-    before any train step runs: the mesh (A.9) and a checkpoint directory of
-    Orbax checkpoints (A.2). The Keras ``.h5`` boot is ported: a
+    """Each option the port cannot honour raises before any train step runs:
+    a checkpoint directory of Orbax checkpoints (A.2) ``NotImplementedError``,
+    and a mesh that the world of ranks cannot form (here 1 × 2 in a world of
+    one process; the mesh itself is ported: tests/test_torch_parallel*.py)
+    ``ValueError``. The Keras ``.h5`` boot is ported: a
     ``retinanet_weight_path`` with no file there raises ``OSError`` before
     the first step, as the JAX package's h5py does (the boot from a file:
     tests/test_torch_hdf5.py). The serving export and the step tracer are
@@ -398,9 +400,10 @@ def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypat
     monkeypatch.setattr(Pipeline, "train_step", lambda *a: steps.append(a))
     if option == "retinanet_weight_path":
         raised = pytest.raises(OSError)
+    elif option == "mesh":
+        raised = pytest.raises(ValueError, match=r"mesh 0x2 != 1 ranks")
     else:
-        raised = pytest.raises(NotImplementedError,
-                               match="A.2" if option == "orbax" else option[:4])
+        raised = pytest.raises(NotImplementedError, match="A.2")
     with raised:
         train_main(cfg.replace(**kw), device="cpu")
     assert steps == []
