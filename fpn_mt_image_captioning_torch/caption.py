@@ -15,8 +15,9 @@ times N single-image requests end to end.
 The pipeline comes from ``Pipeline.from_config``: the tokenizer and
 ``max_seq_len`` files of the Config, and the weights of the Flax msgpack file
 ``--transformer_weight_path`` where it exists (the JAX package's
-``Pipeline.save_weights``); without it seeded weights, or a refusal where an
-Orbax checkpoint exists (reading one is not ported). With ``--artifact=DIR``
+``Pipeline.save_weights``); without it those of the latest checkpoint under
+``--transformer_checkpoint_path`` (the JAX package's Orbax stores or the
+port's own steps), else seeded weights. With ``--artifact=DIR``
 it serves an exported artifact instead (``export.load_serving``, on the
 card), whose image size, beam and batch override the Config's.
 """

@@ -238,11 +238,20 @@ def max_pool_3x3_same(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(F.pad(x, (wl, wr, ht, hb), value=float("-inf")), 3, 2)
 
 
-def he_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+def he_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator,
+               scale: float = 2.0) -> None:
     """Keras/Flax he_normal: a normal truncated at two standard deviations,
-    scaled so the truncated draw has variance 2/fan_in."""
-    std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+    scaled so the truncated draw has variance scale/fan_in (``scale=1`` is
+    Flax's lecun_normal)."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
+                    generator: torch.Generator) -> None:
+    """Keras/Flax glorot_uniform: U(-l, l) with l = sqrt(6 / (fan_in + fan_out))."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    t.uniform_(-limit, limit, generator=generator)
 
 
 class Dropout:

@@ -33,8 +33,9 @@ body is a 400, an unknown path a 404.
         [any Config --key=value]
 
 The weights are those of ``Pipeline.from_config``: the Flax msgpack file
-``--transformer_weight_path`` where it exists, else the seeded init (or a
-refusal where an Orbax checkpoint exists). A sampling batch is seeded with
+``--transformer_weight_path`` where it exists, else the latest checkpoint
+under ``--transformer_checkpoint_path`` (Orbax or the port's own), else the
+seeded init. A sampling batch is seeded with
 ``sample_seed`` + the batch's sequence number. With ``--artifact=DIR`` it
 serves an exported artifact (``export.load_serving``, on the card) without
 the model code; its image size, beam and batch override the Config's, and

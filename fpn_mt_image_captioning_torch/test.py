@@ -6,11 +6,12 @@ of the repository's root ``test.py``, with the same flags).
         [--transformer_weight_path=model_weights/multimodal_transformer.msgpack]
         [--beam_search_n=8] [any Config --key=value]
 
-The weights are the Flax msgpack file ``transformer_weight_path`` that the JAX
-package's ``Pipeline.save_weights`` writes (root ``train.py`` writes it there
-at the end of training). Root ``test.py`` restores the Orbax checkpoint
-instead, which the port cannot read: without the msgpack file this raises
-where a checkpoint exists.
+The weights are those of ``Pipeline.from_config``: the Flax msgpack file
+``transformer_weight_path`` that the JAX package's ``Pipeline.save_weights``
+writes (root ``train.py`` writes it there at the end of training), else the
+latest checkpoint under ``transformer_checkpoint_path``, which root
+``test.py`` restores: the JAX package's Orbax stores read through the port's
+own reader (``train/orbax_store.py``), or the port's own steps.
 """
 
 from __future__ import annotations

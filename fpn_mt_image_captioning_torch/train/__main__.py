@@ -6,9 +6,11 @@ repository's root ``train.py``):
         [any Config --key=value]
 
 Builds the validation iterator and the training dataset (fitting or loading
-the tokenizer), the training pipeline (restoring the latest of its own
-checkpoints under ``transformer_checkpoint_path``), stores ``max_seq_len``
-and the best epoch in the additional-info sidecar, then runs the epoch loop:
+the tokenizer), the training pipeline (restoring the latest checkpoint under
+``transformer_checkpoint_path``: the port's own steps or the JAX package's
+Orbax stores, so a JAX run resumes here; the saves are the port's), stores
+``max_seq_len`` and the best epoch in the additional-info sidecar, then runs
+the epoch loop:
 a train step a batch (a short tail batch padded with zero rows to
 ``batch_size``, as the JAX package pads it: they add nothing to the loss and
 enter the BatchNorm batch statistics as there), the epoch's mean loss, and
@@ -28,9 +30,8 @@ activities, ``*.pt.trace.json``).
 
 Without a checkpoint to restore, the pipeline boots its feature extractor
 from the Keras ``.h5`` file ``retinanet_weight_path`` where one is given (a
-missing file raises ``OSError`` before any step). A checkpoint directory of
-Orbax checkpoints raises before any step (reading them is not ported).
-``--is_training=false`` runs the evaluation of
+missing file raises ``OSError`` before any step). A checkpoint that does not
+fit the model raises before any step. ``--is_training=false`` runs the evaluation of
 ``fpn_mt_image_captioning_torch.evaluate``.
 
 Several ranks, one process a card (NCCL; gloo with ``device="cpu"``)::

@@ -6,14 +6,22 @@
 the oldest steps) over files of the port's own: one Flax msgpack file of the
 training-state tree (``weights.train_state_to_flax``: the JAX ``TrainState``
 layout) per step directory, ``<directory>/<step>/train_state.msgpack``,
-written to a temporary name and renamed, so a step directory holds a whole
-file or none. Over several ranks a save is collective: every rank calls it
-with the whole tree (``Pipeline.state_tree`` gathers the tensor-parallel
-shards), the primary writes, and every rank meets at a barrier after it; a
-restore reads the whole tree on every rank, which keeps its shards
-(``Pipeline.load_state_tree``). The JAX package's checkpoints are Orbax
-stores (OCDBT + zstd), which the port does not read: a directory holding one
-raises, and never starts afresh in its place.
+written to a temporary name beside the step directories and renamed into its
+own, so a step directory holds a whole file. Over several ranks a save is
+collective: every rank calls it with the whole tree (``Pipeline.state_tree``
+gathers the tensor-parallel shards), the primary writes, and every rank
+meets at a barrier after it; a restore reads the whole tree on every rank,
+which keeps its shards (``Pipeline.load_state_tree``).
+
+The JAX package's checkpoints are Orbax stores (OCDBT + zstd): ``all_steps``,
+``latest_step`` and ``restore`` list and read them beside the port's own
+steps in one directory, through the port's reader (``train/orbax_store.py``):
+the JAX ``TrainState(params, batch_stats, opt_state=(empty,
+KerasAdamState(count, m, v, vhat)), step)`` is the tree the port's files
+hold. Every numeric directory is a step, as Orbax counts them; one that
+holds neither format raises when it is read, and one holding both reads the
+port's file. The port never writes Orbax (a save is a
+msgpack step) and never deletes an Orbax step when it prunes.
 
 ``SmartCheckpointSaver`` is the JAX state machine unchanged:
 
@@ -35,14 +43,15 @@ from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..parallel.multihost import barrier, is_primary
 from ..weights import read_flax_msgpack, write_flax_msgpack
+from .orbax_store import BFloat16Bits, is_orbax_step, read_step
 
 __all__ = ["CheckpointManager", "SmartCheckpointSaver", "STATE_FILE"]
 
 STATE_FILE = "train_state.msgpack"
-_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "default", "_METADATA", "manifest.ocdbt")
 
 
 def _leaves(tree, prefix=()):
@@ -54,18 +63,39 @@ def _leaves(tree, prefix=()):
 
 
 def _structure(tree) -> list:
-    return [path for path, _ in _leaves(tree)]
+    """The leaves' paths, sorted: an Orbax tree's keys come in another order
+    than the model's."""
+    return sorted(path for path, _ in _leaves(tree))
+
+
+def _shape_dtype(a) -> tuple:
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), str(a.dtype).removeprefix("torch.")
+    a = np.asarray(a)
+    return a.shape, str(a.dtype)
 
 
 def _differing_leaves(got, want) -> list:
     """(path, shapes, dtypes) of the leaves of two trees of one structure
     whose shape or dtype differ."""
+    have = dict(_leaves(got))
     out = []
-    for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
-        a, b = np.asarray(a), np.asarray(b)
-        if a.shape != b.shape or a.dtype != b.dtype:
-            out.append(("/".join(path), a.shape, b.shape, str(a.dtype), str(b.dtype)))
+    for path, b in _leaves(want):
+        (sa, da), (sb, db) = _shape_dtype(have[path]), _shape_dtype(b)
+        if sa != sb or da != db:
+            out.append(("/".join(path), sa, sb, da, db))
     return out
+
+
+def _torch_bfloat16(tree):
+    """``BFloat16Bits`` leaves as torch bfloat16 tensors, as
+    ``read_flax_msgpack`` gives them."""
+    if isinstance(tree, Mapping):
+        return {k: _torch_bfloat16(v) for k, v in tree.items()}
+    if isinstance(tree, BFloat16Bits):
+        bits = np.ascontiguousarray(tree).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return tree
 
 
 class CheckpointManager:
@@ -75,27 +105,24 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
-        self.all_steps()   # refuses a directory of Orbax checkpoints here
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, str(step), STATE_FILE)
 
-    def all_steps(self) -> list[int]:
+    def _steps(self, port_only: bool = False) -> list[int]:
+        """The step directories (every numeric one, as Orbax counts them),
+        or only those holding the port's file."""
         steps = []
         for name in os.listdir(self.directory):
             full = os.path.join(self.directory, name)
-            if not (name.isdigit() and os.path.isdir(full)):
-                continue
-            inside = os.listdir(full)
-            if any(marker in inside for marker in _ORBAX_MARKERS):
-                raise NotImplementedError(
-                    f"{full!r} is an Orbax checkpoint of the JAX package; reading Orbax "
-                    "checkpoints is not ported (ROADMAP A.2). Export its weights with the "
-                    "JAX package's Pipeline.save_weights, or give the port a checkpoint "
-                    "directory of its own")
-            if STATE_FILE in inside:
+            if name.isdigit() and os.path.isdir(full) and (
+                    not port_only or os.path.isfile(os.path.join(full, STATE_FILE))):
                 steps.append(int(name))
         return sorted(steps)
+
+    def all_steps(self) -> list[int]:
+        """Every step: the port's files and the JAX package's Orbax stores."""
+        return self._steps()
 
     @property
     def latest_step(self) -> int | None:
@@ -104,13 +131,26 @@ class CheckpointManager:
 
     def save(self, step: int, state: Mapping) -> None:
         if is_primary():
-            os.makedirs(os.path.dirname(self._path(step)), exist_ok=True)
-            tmp = self._path(step) + ".tmp"
+            # written beside the step directories, so that a step directory
+            # exists only with its whole file
+            tmp = os.path.join(self.directory, f".{step}.{STATE_FILE}.tmp")
             write_flax_msgpack(tmp, state)
+            os.makedirs(os.path.dirname(self._path(step)), exist_ok=True)
             os.replace(tmp, self._path(step))
-            for old in self.all_steps()[: -self.max_to_keep or None]:
+            for old in self._steps(port_only=True)[: -self.max_to_keep or None]:
                 shutil.rmtree(os.path.join(self.directory, str(old)))
         barrier("checkpoint_save")
+
+    def read(self, step: int) -> dict:
+        """The tree stored at ``step`` as it is, from the port's file where
+        there is one, else from the Orbax store."""
+        if os.path.isfile(self._path(step)):
+            return read_flax_msgpack(self._path(step))
+        full = os.path.join(self.directory, str(step))
+        if is_orbax_step(full):
+            return _torch_bfloat16(read_step(full))
+        raise FileNotFoundError(f"step {step} under {self.directory!r} holds neither the "
+                                f"port's {STATE_FILE} nor an Orbax store")
 
     def restore(self, state_template: Mapping, step: int | None = None) -> Any:
         """The tree saved at ``step`` (default: the latest; None when there
@@ -121,7 +161,7 @@ class CheckpointManager:
         step = self.latest_step if step is None else step
         if step is None:
             return None
-        raw = read_flax_msgpack(self._path(step))
+        raw = self.read(step)
         if not isinstance(raw, Mapping) or set(raw) != set(state_template):
             raise ValueError(f"checkpoint step {step}: fields {sorted(raw)} are not "
                              f"{sorted(state_template)}")

@@ -24,8 +24,9 @@ per-variable clipping, AMSGrad, BatchNorm statistics);
 ``finalize_batch_stats`` re-estimates the BatchNorm statistics;
 ``state_tree``/``load_state_tree`` carry the state in the JAX ``TrainState``
 layout. Captioning serves a cast and packed copy of the master weights,
-made again from the current ones after the master changes. Orbax
-checkpoints are not ported: a directory of them raises.
+made again from the current ones after the master changes. A checkpoint
+directory may hold the JAX package's Orbax steps too, which restore alike
+(``train/orbax_store.py`` reads them); the port saves its own files only.
 
 Several ranks (``Config.mesh.enabled`` in a world of more than one rank,
 ``parallel/``): the pipeline builds the (data, model) mesh; a training
@@ -533,26 +534,25 @@ class Pipeline:
         ``cfg.tokenizer_filename``, ``max_seq_len`` from
         ``cfg.additional_filename``, and the weights of the Flax msgpack file
         ``cfg.transformer_weight_path`` where it exists (root ``train.py``
-        writes it at the end of training). Without it the JAX package restores
-        the latest Orbax checkpoint under ``cfg.transformer_checkpoint_path``;
-        reading one is not ported, so where one exists this raises instead of
-        serving seeded weights in its place. Else, as there, the seeded init
-        with the Keras RetinaNet ``.h5`` weights of
-        ``cfg.retinanet_weight_path`` imported where it is given (a missing
-        file raises ``OSError``), or the seeded init alone."""
+        writes it at the end of training). Without it, as the JAX package's
+        ``Pipeline`` does, the latest checkpoint under
+        ``cfg.transformer_checkpoint_path``: the JAX package's Orbax stores
+        and the port's own steps alike (``CheckpointManager.read``; its
+        ``params`` and ``batch_stats``). Else the seeded init with the Keras
+        RetinaNet ``.h5`` weights of ``cfg.retinanet_weight_path`` imported
+        where it is given (a missing file raises ``OSError``), or the seeded
+        init alone."""
         variables = None
+        ckpt = cfg.transformer_checkpoint_path
         if os.path.isfile(cfg.transformer_weight_path):
             variables = read_flax_msgpack(cfg.transformer_weight_path)
-        else:
-            ckpt = cfg.transformer_checkpoint_path
-            if ckpt and os.path.isdir(ckpt) and os.listdir(ckpt):
-                raise NotImplementedError(
-                    f"a checkpoint exists under {ckpt!r}, and reading Orbax checkpoints is "
-                    "not ported yet; serving seeded weights in its place would be wrong. "
-                    "Write the weights as Flax msgpack with the JAX package's "
-                    "Pipeline.save_weights (train.py writes cfg.transformer_weight_path at "
-                    f"the end of training; no file at {cfg.transformer_weight_path!r}) and "
-                    "pass --transformer_weight_path=PATH")
+        elif ckpt and os.path.isdir(ckpt):
+            manager = CheckpointManager(ckpt)
+            step = manager.latest_step
+            if step is not None:
+                tree = manager.read(step)
+                variables = {"params": tree["params"], "batch_stats": tree["batch_stats"]}
+                print("Latest checkpoint restored!!")
         return cls(cfg.tokenizer_filename, load_max_seq_len(cfg.additional_filename), cfg,
                    variables, device=device)
 

@@ -22,10 +22,11 @@ C, 1) transpose to the grouped (H, W, 1, C); BatchNorm's (γ, β, μ, σ²) go t
 params (scale/bias) and batch_stats (mean/var). The import is best-effort:
 whatever is unmatched keeps its values and is listed in the report's
 ``missed``, as in the JAX package. ``retinanet_keras_layers`` is the inverse
-mapping (a tree to the Keras-named layers whose import gives it back).
-
-Not ported yet: ``write_keras_h5`` (it needs an HDF5 writer) and
-``apply_flat_updates`` (the TF-parity harness's).
+mapping (a tree to the Keras-named layers whose import gives it back), and
+``write_keras_h5`` writes such layers as a Keras ``.h5`` file with the
+port's own HDF5 writer (``utils/hdf5_writer.py``). ``apply_flat_updates``
+overwrites parameters by flat ``"a/b/c"`` paths, shape-checked (the JAX
+package's TF-parity harness pushes a Keras model's weights in with it).
 """
 
 from __future__ import annotations
@@ -36,9 +37,11 @@ from typing import Any
 import numpy as np
 
 from .hdf5 import File
+from .hdf5_writer import Tree
+from .hdf5_writer import write as write_hdf5
 
-__all__ = ["load_keras_h5", "import_retinanet_weights", "retinanet_keras_layers",
-           "ImportReport"]
+__all__ = ["load_keras_h5", "write_keras_h5", "import_retinanet_weights",
+           "retinanet_keras_layers", "apply_flat_updates", "ImportReport"]
 
 # Keras MobileNetV2 flat block index → (group, block-in-group) of
 # models/backbones/mobilenet_v2.py's _BLOCK_CONFIG
@@ -156,6 +159,51 @@ def _mobilenet_pairs():
         yield f"{prefix}_project", f"{prefix}_project_BN", [our, "project"]
 
 
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    """``"a/b/c" -> leaf`` in the tree's order; empty subtrees drop out, as
+    in ``flax.traverse_util.flatten_dict``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _unflatten(flat: Mapping) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def apply_flat_updates(variables: Mapping,
+                       updates: Mapping[str, np.ndarray]) -> tuple[dict, ImportReport]:
+    """Overwrite parameters by flat ``"a/b/c" -> array`` paths, relative to
+    ``variables["params"]`` (the ``weights.to_flax`` layout). Each value
+    takes its leaf's dtype; a shape that differs raises ``ValueError``; a
+    path the tree lacks is reported in ``missed``. Returns (new variables,
+    report); ``variables`` is left as it was."""
+    report = ImportReport()
+    flat = _flatten(_copy_tree(variables["params"]))
+    for path, value in updates.items():
+        if path not in flat:
+            report.missed.append(path)
+            continue
+        if flat[path].shape != np.shape(value):
+            raise ValueError(f"shape mismatch at {path}: {flat[path].shape} vs {np.shape(value)}")
+        flat[path] = np.asarray(value, dtype=flat[path].dtype)
+        report.matched.append(path)
+    new_vars = dict(variables)
+    new_vars["params"] = _unflatten(flat)
+    return new_vars, report
+
+
 def import_retinanet_weights(variables: Mapping, h5_path: Any,
                              n_conv_submodule: int = 2) -> tuple[dict, ImportReport]:
     """Import backbone/FPN/head-trunk weights into a Transformer's variables.
@@ -256,3 +304,24 @@ def retinanet_keras_layers(variables: Mapping,
             out[keras_name] = {"kernel:0": np.asarray(conv["kernel"]),
                                "bias:0": np.asarray(conv["bias"])}
     return out
+
+
+def write_keras_h5(path, layers: Mapping[str, Mapping[str, np.ndarray]]) -> None:
+    """Write ``{layer_name: {weight_name: array}}`` in the Keras
+    ``save_weights`` HDF5 layout that ``load_keras_h5`` reads, through the
+    port's own writer (``utils/hdf5_writer.py``), as the JAX package's
+    ``write_keras_h5`` writes it through h5py: the root attribute
+    ``layer_names`` (fixed-length byte strings), a group a layer holding its
+    datasets at ``<layer>/<layer>/<weight>`` (the full name inside the layer's
+    group nests a second group) and the group's ``weight_names``."""
+    root = Tree()
+    root.attrs["layer_names"] = np.array([n.encode() for n in layers])
+    for lname, weights in layers.items():
+        g = root.group(lname)
+        wnames = []
+        for wn, arr in weights.items():
+            full = f"{lname}/{wn}"
+            g.dataset(full, arr)
+            wnames.append(full.encode())
+        g.attrs["weight_names"] = np.array(wnames)
+    write_hdf5(path, root)

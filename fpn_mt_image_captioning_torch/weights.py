@@ -32,9 +32,8 @@ above ``MAX_CHUNK_SIZE`` bytes. A ``bfloat16`` leaf, which numpy cannot name,
 comes back as a torch tensor. Anything else raises ``ValueError`` naming the
 byte offset.
 
-Orbax checkpoints (zstd-compressed OCDBT stores) are not read: the JAX
-package's ``Pipeline.save_weights`` writes the msgpack file that the port
-reads.
+The JAX package's Orbax checkpoints (zstd-compressed OCDBT stores) are read
+by ``train/orbax_store.py`` into the same trees.
 """
 
 from __future__ import annotations
@@ -46,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.layers import BatchNorm32, he_normal_
+from .models.layers import BatchNorm32, glorot_uniform_, he_normal_
 
 __all__ = ["from_flax", "to_flax", "train_state_to_flax", "train_state_from_flax",
            "init_weights", "read_flax_msgpack", "write_flax_msgpack", "MAX_CHUNK_SIZE"]
@@ -459,21 +458,37 @@ def write_flax_msgpack(path, tree) -> None:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init of every parameter and statistic, drawn from
-    ``generator`` only: he_normal for dense, conv and stacked projection
-    kernels, zero biases, U(-0.05, 0.05) embeddings (Keras' default), unit
-    norm scales, BatchNorm statistics (0, 1). The JAX package uses the same
-    families (and glorot/lecun/normal(0.01) for a few convs); the draws differ,
-    since the generators do."""
+    ``generator`` only, with the JAX package's initializers: lecun_normal
+    for the backbone's convs (Flax's default), glorot_uniform for the FPN's
+    convs and the vocabulary layer (Keras' default, ``models/fpn.py`` and
+    ``models/transformer.py``), normal(0.01) for the head trunks' convs,
+    he_normal for every other conv, dense and stacked projection kernel;
+    zero biases, U(-0.05, 0.05) embeddings (Keras' default), unit norm
+    scales, BatchNorm statistics (0, 1). The draws differ from JAX's, since
+    the generators do."""
     from .models.attention import MultiViewAttention
     from .models.transformer import Encoder
 
-    for m in model.modules():
+    for name, m in model.named_modules():
         if isinstance(m, nn.Conv2d):
-            he_normal_(m.weight, m.weight[0].numel(), generator)
+            fan_in = m.weight[0].numel()
+            part = name.split(".")
+            if "backbone" in part:
+                he_normal_(m.weight, fan_in, generator, scale=1.0)
+            elif "fpn" in part:
+                rf = m.weight[0, 0].numel()
+                glorot_uniform_(m.weight, fan_in, rf * m.out_channels // m.groups, generator)
+            elif "regression_trunk" in part or "classification_trunk" in part:
+                m.weight.normal_(0.0, 0.01, generator=generator)
+            else:
+                he_normal_(m.weight, fan_in, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
-            he_normal_(m.weight, m.in_features, generator)
+            if name.split(".")[-1] == "final_layer":
+                glorot_uniform_(m.weight, m.in_features, m.out_features, generator)
+            else:
+                he_normal_(m.weight, m.in_features, generator)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.uniform_(-0.05, 0.05, generator=generator)

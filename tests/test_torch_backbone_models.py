@@ -53,36 +53,36 @@ SIZE, MAX_LEN, BEAMS = 128, 8, (2, 8)
 MODEL = dict(num_layers=2, d_model=32, num_heads=4, dff=64)
 
 
-def config_fields(name: str, root) -> dict:
+def config_fields(name: str, root, size: int = SIZE, fused_backbone: bool = True) -> dict:
     """Both packages' config: ``fused_backbone=True``, which these backbones
     ignore (so every test here holds the eager encode under it); the JAX
     ``Pipeline`` builds its ``MetricEval`` from a validation split, so there
     is a one-image one."""
-    datadir = make_synthetic_dataset(str(root / "data"), n_train=1, n_val=1, image_size=SIZE)
-    return dict(image_input_size=SIZE, backbone=name, **MODEL, beam_search_n=BEAMS[1],
+    datadir = make_synthetic_dataset(str(root / "data"), n_train=1, n_val=1, image_size=size)
+    return dict(image_input_size=size, backbone=name, **MODEL, beam_search_n=BEAMS[1],
                 compute_dtype="float32", dropout_rate=0.0, datadir=datadir,
-                fused_backbone=True,
+                fused_backbone=fused_backbone,
                 tokenizer_filename=str(root / "tok.json"),
                 transformer_checkpoint_path=str(root / "ckpt"))
 
 
-def build_family(name: str, root) -> dict:
+def build_family(name: str, root, size: int = SIZE, fused_backbone: bool = True) -> dict:
     """One family's model: numpy-seeded variables (BatchNorm calibrated on a
     seeded batch) in a port ``Pipeline`` (CPU) and a JAX ``Pipeline`` (its
     jitted init replaced by those variables: compiling DenseNet-121's init
-    costs ~15 s), three seeded 128² uint8 images."""
+    costs ~15 s), three seeded ``size``² uint8 images."""
     jtok = fit(JxTokenizer)
     store_tokenizer_to_path(jtok, str(root / "tok.json"))
-    fields = config_fields(name, root)
+    fields = config_fields(name, root, size, fused_backbone)
     cfg = Config(**fields)
-    seed = FAMILIES.index(name)
+    seed = FAMILIES.index(name) if name in FAMILIES else len(FAMILIES)
     with torch.device("meta"):
         model = Transformer(**MODEL, input_vocab_size=cfg.input_vocab_size,
                             target_vocab_size=len(jtok.index_word), max_seq_len=MAX_LEN,
                             backbone_name=name)
     model = model.to_empty(device="cpu")
     model.load_state_dict(from_flax(seeded(to_flax(model), seed)), strict=True)
-    calib = np.random.default_rng(10 + seed).integers(0, 256, (2, SIZE, SIZE, 3), np.uint8)
+    calib = np.random.default_rng(10 + seed).integers(0, 256, (2, size, size, 3), np.uint8)
     variables = calibrated(model, lambda: model.encoder.features(torch.from_numpy(calib),
                                                                  train=True), seed)
     variables = {c: v for c, v in variables.items() if v}
@@ -93,7 +93,7 @@ def build_family(name: str, root) -> dict:
                    lambda self: JxTrainState(params, stats, None, jnp.int32(0)))
         jpipe = JxPipeline(cfg.tokenizer_filename, cfg.transformer_checkpoint_path, MAX_LEN,
                            JxConfig(**fields))
-    imgs = np.random.default_rng(4).integers(0, 256, (3, SIZE, SIZE, 3), dtype=np.uint8)
+    imgs = np.random.default_rng(4).integers(0, 256, (3, size, size, 3), dtype=np.uint8)
     return dict(name=name, root=root, cfg=cfg, pipe=pipe, jpipe=jpipe, variables=variables,
                 images=imgs)
 
@@ -128,10 +128,27 @@ def test_encode_and_beam_search_match_jax(family, beam):
     port's steps (the fused step's plain version, and the non-fused
     KV-cached step) equal to JAX's non-fused ``beam_search``: sequences and
     lengths exact, scores within 1e-4."""
+    check_encode_and_beam_search(family, beam, lenc=1)   # P6's view at 128²: 1²
+
+
+@pytest.mark.parametrize("name", ["resnet50", "mobilenet224_0.35"])
+def test_non_power_of_two_size_matches_jax(name, tmp_path):
+    """At 200², a size no power of two divides past 8 (P3..P7 at 25, 13, 7,
+    4 and 2 cells a side, TF-SAME padding odd at every stride): ResNet-50's
+    and MobileNetV2's eager encode and beam search (beam 8) against JAX's at
+    the bars of ``test_encode_and_beam_search_match_jax``. (The fused
+    MobileNetV2 backbone needs a multiple of 32 and refuses 200², as the
+    JAX package's does.)"""
+    world = build_family(name, tmp_path, size=200, fused_backbone=False)
+    check_encode_and_beam_search(world, BEAMS[1], lenc=1)
+    world["jpipe"].close()
+
+
+def check_encode_and_beam_search(family, beam: int, lenc: int) -> None:
     pipe, jpipe = family["pipe"], family["jpipe"]
     want = np.array(jpipe._encode(jpipe.variables, jnp.asarray(family["images"])))
     got = pipe.encode(family["images"])
-    assert got.shape == (3, 1, MODEL["d_model"])   # P6's view at 128²: 1²
+    assert got.shape == (3, lenc, MODEL["d_model"]) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
     j_seqs, j_len, j_scores = jx_beam_search(
         jpipe.transformer, jpipe.variables, jnp.asarray(want), beam_n=beam,
@@ -145,7 +162,10 @@ def test_encode_and_beam_search_match_jax(family, beam):
         np.testing.assert_array_equal(seqs.numpy(), np.asarray(j_seqs))
         np.testing.assert_array_equal(lengths.numpy(), np.asarray(j_len))
         np.testing.assert_allclose(scores.numpy(), np.asarray(j_scores), atol=1e-4, rtol=0)
-    assert len(np.unique(np.round(scores.numpy(), 3))) == 3   # each image its own score
+    if family["images"].shape[1] == SIZE:
+        assert len(np.unique(np.round(scores.numpy(), 3))) == 3   # each image its own score
+    else:   # each image its own score, further apart than twice their bar
+        assert np.diff(np.sort(scores.numpy())).min() > 2e-4
 
 
 def test_predict_batch_matches_jax_pipeline(family):

@@ -137,14 +137,19 @@ def test_metric_eval_matches_jax_on_the_result_file(world, tmp_path):
 
 def test_from_config_refuses_orbax_without_weights(world):
     """An Orbax checkpoint and no msgpack file at ``transformer_weight_path``:
-    a refusal that names the way out, never the seeded init served in its
-    place. (With the file, as in ``world``, the file is served.)"""
+    ``from_config`` restores the checkpoint's weights, as the JAX
+    ``Pipeline`` restores them, never the seeded init in their place; the
+    port's ``test.py`` captions with them as from the msgpack file."""
     assert any(pathlib.Path(world["cfg"].transformer_checkpoint_path).iterdir())
-    cfg = world["cfg"].replace(transformer_weight_path=str(world["root"] / "none.msgpack"))
-    with pytest.raises(NotImplementedError, match="save_weights.*--transformer_weight_path"):
-        Pipeline.from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="save_weights.*--transformer_weight_path"):
-        pt_test.main(cfg, "unused.png", device="cpu")
+    cfg = world["cfg"].replace(transformer_weight_path=str(world["root"] / "none.msgpack"),
+                               result_dir=str(world["root"] / "orbax_test"))
+    pipe = Pipeline.from_config(cfg, device="cpu")
+    got, want = pipe.transformer.state_dict(), world["pipe"].transformer.state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    img = sorted((pathlib.Path(cfg.datadir) / "images" / "val2017").glob("*.png"))[0]
+    pixels = load_image(str(img), None, cfg.image_input_size)[0]
+    assert pt_test.main(cfg, str(img), device="cpu") == world["pipe"].evaluate_img(pixels)
 
 
 def test_metric_eval_is_built_on_first_use(world, monkeypatch):

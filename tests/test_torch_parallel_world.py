@@ -6,8 +6,9 @@ order; this process computes the single-process and JAX references while the
 worlds run, and each case below compares one check. Sizes: 128²,
 mobilenet224_0.35, d 32, 2+2 layers, 4 heads, dff 64, a vocabulary of 30
 (every tensor-parallel rule divides over a model axis of 2), float32; the
-global batch of a step is 4 rows, row 3 all padding. Tolerances are stated
-where they are used."""
+global batch of a step is 4 rows, row 3 all padding. The step checks start
+from ``tw.step_variables`` (he_normal throughout); the other checks from
+the port's seeded init. Tolerances are stated where they are used."""
 
 import json
 import os
@@ -69,7 +70,11 @@ def inputs(tmp_path_factory, tok):
     """What the ranks read: the JAX package's decode-only init of the beam
     check (as tests/test_parallel.py makes it) and its encoder output, a
     checkpoint written by one process after two steps, a synthetic split."""
-    d = tmp_path_factory.mktemp("world_inputs")
+    return make_inputs(tmp_path_factory.mktemp("world_inputs"), tok)
+
+
+def make_inputs(d: Path, tok) -> dict:
+    """``inputs`` written into the directory ``d``."""
     key = jax.random.PRNGKey(7)
     model = JxTransformer(num_layers=2, d_model=32, num_heads=4, dff=64, input_vocab_size=16,
                           target_vocab_size=tw.BEAM_VOCAB, max_seq_len=tw.BEAM_MAX_LEN + 1)
@@ -99,7 +104,7 @@ class World:
     (at most ``TIMEOUT_S`` from the start; on expiry they are killed and the
     case fails) and reads what they wrote."""
 
-    def __init__(self, name: str, root: Path, inputs: Path):
+    def __init__(self, name: str, root: Path, inputs: Path, *extra: str):
         self.name, self.out = name, root / name
         self.out.mkdir(parents=True)
         n, m = WORLDS[name]
@@ -112,7 +117,7 @@ class World:
                    "OMP_NUM_THREADS": "1"}
             log = open(self.out / f"log{r}.txt", "w")
             self.procs.append(subprocess.Popen(
-                [sys.executable, str(WORKER), str(self.out), str(inputs), str(m)],
+                [sys.executable, str(WORKER), str(self.out), str(inputs), str(m), *extra],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
         self._ranks = None
 
@@ -166,14 +171,16 @@ def worlds(inputs, tmp_path_factory):
 @pytest.fixture(scope="module")
 def one_process(worlds, tok, tmp_path_factory):
     """The port in one process on the global batches: the 3 steps at
-    dropout 0 and 0.1, then BatchNorm re-estimation over the global chunks
-    of the finalize check."""
+    dropout 0 and 0.1 from the step checks' start (``tw.step_variables``),
+    then BatchNorm re-estimation over the global chunks of the finalize
+    check."""
     root = tmp_path_factory.mktemp("one_process")
     vocab = len(tok.index_word)
     images, caps = tw.train_batch(vocab)
     out = {}
     for dropout in (0.0, 0.1):
-        pipe = Pipeline(tok, tw.MAX_LEN, tw.config(dropout, mesh=False), seed=0, device="cpu",
+        pipe = Pipeline(tok, tw.MAX_LEN, tw.config(dropout, mesh=False),
+                        tw.step_variables(tok), device="cpu",
                         checkpoint_path=str(root / f"ckpt{dropout}"))
         losses = [pipe.train_step(images, caps) for _ in range(tw.STEPS)]
         out[dropout] = dict(losses=losses, tree=pipe.state_tree(), pipe=pipe)
@@ -193,8 +200,14 @@ def finalized_one_process(pipe, world: int) -> dict:
 @pytest.fixture(scope="module")
 def jax_steps(worlds, tok):
     """The JAX package's single-device step (``build_train_step_fn``,
-    jitted) from the port's seeded weights, 3 steps on the global batch,
-    dropout 0, the same schedule (warm-up 4000)."""
+    jitted) from the step checks' start (``tw.step_variables``), 3 steps on
+    the global batch, dropout 0, the same schedule (warm-up 4000)."""
+    return jax_step_reference(tok, tw.step_variables(tok))
+
+
+def jax_step_reference(tok, variables) -> dict:
+    """The JAX package's 3 steps of ``jax_steps`` from ``variables``: the
+    losses, and the parameters, statistics and first moments flattened."""
     jcfg = JxConfig(**tw.FIELDS, dropout_rate=0.0)
     vocab = len(tok.index_word)
     model = JxTransformer(
@@ -204,8 +217,6 @@ def jax_steps(worlds, tok):
         baseline_index=jcfg.baseline_index, backbone_name=jcfg.backbone,
         n_conv_submodule=jcfg.n_conv_submodule, activation=jcfg.activation,
         bn_momentum=jcfg.bn_momentum)
-    start = Pipeline(tok, tw.MAX_LEN, tw.config(mesh=False), seed=0, device="cpu")
-    variables = to_flax(start.transformer)
     optimizer = make_optimizer(custom_schedule(
         jcfg.dff if jcfg.schedule_uses_dff else jcfg.d_model, jcfg.warm_up_steps))
     params = jax.tree.map(jnp.asarray, variables["params"])

@@ -160,15 +160,17 @@ def test_cli_artifact_flag_raises(tmp_path):
 def test_existing_weights_raise_instead_of_seeded_serving(tmp_path, what):
     """Weights the port cannot read raise when the serving pipeline is
     built, as they do in the JAX package; it does not serve seeded weights
-    in their place: an Orbax checkpoint (``NotImplementedError``: not
-    ported), and a pretrained Keras ``.h5`` path with no file there
-    (``OSError``, as JAX's h5py raises; a file there is read and imported,
+    in their place: a checkpoint step that holds neither the port's file
+    nor an Orbax store (Orbax counts the directory as a step, and its
+    restore fails; a readable one restores, tests/test_torch_orbax.py), and
+    a pretrained Keras ``.h5`` path with no file there (``OSError``, as
+    JAX's h5py raises; a file there is read and imported,
     tests/test_torch_hdf5.py)."""
     if what == "checkpoint":
         ckpt = tmp_path / "ckpt"
         (ckpt / "100").mkdir(parents=True)
         cfg = CFG.replace(transformer_checkpoint_path=str(ckpt))
-        raised = pytest.raises(NotImplementedError, match="not ported")
+        raised = pytest.raises(FileNotFoundError, match="step 100 .* holds neither")
     else:
         cfg = CFG.replace(transformer_checkpoint_path=str(tmp_path / "none"),
                           retinanet_weight_path=str(tmp_path / "r.h5"))

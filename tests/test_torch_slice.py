@@ -214,7 +214,7 @@ def test_kernel_wrapper_refuses_other_devices():
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "fpn_mt_image_captioning_tpu", "msgpack", "h5py", "orbax",
-             "tensorstore")
+             "tensorstore", "zstandard")
 
 
 def test_port_imports_no_jax():
@@ -222,7 +222,7 @@ def test_port_imports_no_jax():
     backbone, the image loader, the weight files, the metrics and the
     evaluation entry points among them) and ``chip_smoke``, in a fresh
     interpreter, loads neither JAX, Flax, the JAX package, msgpack, h5py,
-    Orbax nor tensorstore; no source names them either. Nor does it load
+    Orbax, tensorstore nor zstandard; no source names them either. Nor does it load
     matplotlib, which the card's machine lacks: the plotting functions
     import it when they run."""
     code = (

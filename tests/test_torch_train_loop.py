@@ -259,9 +259,18 @@ def orbax_checkpoint(path) -> None:
 
 
 def test_orbax_directory_raises(tmp_path):
+    """A directory of the JAX package's Orbax checkpoints is listed and read
+    (the reader itself: tests/test_torch_orbax.py); a restore into a model
+    it does not fit raises ``ValueError``, as the JAX manager's does."""
     orbax_checkpoint(tmp_path / "orbax")
-    with pytest.raises(NotImplementedError, match="Orbax.*A.2"):
-        pt_checkpoint.CheckpointManager(str(tmp_path / "orbax"))
+    mgr = pt_checkpoint.CheckpointManager(str(tmp_path / "orbax"))
+    assert mgr.all_steps() == [1] and mgr.latest_step == 1
+    tree = mgr.read(1)
+    assert np.array_equal(tree["params"]["w"], np.ones((2, 3), np.float32))
+    assert tree["batch_stats"] == {} and int(tree["step"]) == 0
+    assert mgr.restore(tree)["params"]["w"].dtype == np.float32
+    with pytest.raises(ValueError, match="structure does not match"):
+        mgr.restore(dict(tree, params={"w": np.ones((2, 3), np.float32), "b": np.ones(3)}))
 
 
 # ---------------------------------------------------------------------------
@@ -383,8 +392,8 @@ UNPORTED = {
 @pytest.mark.parametrize("option", list(UNPORTED))
 def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypatch, option):
     """Each option the port cannot honour raises before any train step runs:
-    a checkpoint directory of Orbax checkpoints (A.2) ``NotImplementedError``,
-    and a mesh that the world of ranks cannot form (here 1 × 2 in a world of
+    an Orbax checkpoint that does not fit the model ``ValueError`` (one that
+    fits resumes: tests/test_torch_orbax.py), and a mesh that the world of ranks cannot form (here 1 × 2 in a world of
     one process; the mesh itself is ported: tests/test_torch_parallel*.py)
     ``ValueError``. The Keras ``.h5`` boot is ported: a
     ``retinanet_weight_path`` with no file there raises ``OSError`` before
@@ -403,7 +412,7 @@ def test_unported_options_raise_before_the_first_step(world, tmp_path, monkeypat
     elif option == "mesh":
         raised = pytest.raises(ValueError, match=r"mesh 0x2 != 1 ranks")
     else:
-        raised = pytest.raises(NotImplementedError, match="A.2")
+        raised = pytest.raises(ValueError, match="structure does not match")
     with raised:
         train_main(cfg.replace(**kw), device="cpu")
     assert steps == []

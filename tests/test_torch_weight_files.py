@@ -10,6 +10,7 @@ hypothesis round trip against ``msgpack`` itself."""
 import json
 
 import flax.serialization as fs
+import jax
 import jax.numpy as jnp
 import msgpack
 import numpy as np
@@ -283,3 +284,42 @@ def test_long_forms_against_msgpack():
     want = msgpack.packb(tree)
     assert W._to_bytes(tree) == want
     assert _same(W._from_bytes(want), msgpack.unpackb(want, raw=False))
+
+
+@pytest.mark.parametrize("backbone", ["mobilenet224_0.35", "resnet50"])
+def test_init_weights_draws_the_jax_initializers(backbone):
+    """``init_weights`` draws every tensor from the family the JAX package's
+    ``Transformer.init`` draws it from (lecun_normal backbones,
+    glorot_uniform FPN and vocabulary layer, normal(0.01) head trunks,
+    he_normal elsewhere): per tensor of at least 256 values, the standard
+    deviation and the 99.9th percentile of the magnitude within 15 % of JAX's (the draws
+    differ; a truncated normal, a uniform and a plain normal of one variance
+    differ by 30 % or more in the 99.9th percentile of the magnitude). Smaller random
+    tensors are only required to be random; constant ones equal."""
+    from fpn_mt_image_captioning_tpu.models.transformer import Transformer as JxTransformer
+
+    kw = dict(num_layers=1, d_model=64, num_heads=4, dff=128, input_vocab_size=1024,
+              target_vocab_size=500, max_seq_len=8, backbone_name=backbone)
+    net = Transformer(**kw)
+    W.init_weights(net, torch.Generator().manual_seed(0))
+    got = traverse_util.flatten_dict(W.to_flax(net), sep="/")
+    jx = jax.jit(JxTransformer(**kw).init, static_argnums=(3, 4))(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.zeros((1, 128, 128, 3)), jnp.ones((1, 4), jnp.int32), True, None)
+    want = traverse_util.flatten_dict(jax.device_get(jx), sep="/")
+    assert got.keys() == want.keys()
+    checked = 0
+    for k, w in want.items():
+        w, g = np.asarray(w, np.float64), np.asarray(got[k], np.float64)
+        assert g.shape == w.shape, k
+        if w.std() == 0:
+            assert np.all(g == w), k            # zeros, ones, (0, 1) statistics
+            continue
+        if w.size < 256:
+            assert g.std() > 0, k
+            continue
+        assert 0.85 < g.std() / w.std() < 1.15, (k, g.std(), w.std())
+        tail_g, tail_w = (np.quantile(np.abs(x), 0.999) for x in (g, w))
+        assert 0.85 < tail_g / tail_w < 1.15, (k, tail_g, tail_w)
+        checked += 1
+    assert checked > 50

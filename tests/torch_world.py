@@ -1,7 +1,7 @@
 """One rank of a world of CPU processes for tests/test_torch_parallel_world.py.
 
     RANK=r WORLD_SIZE=n LOCAL_RANK=0 MASTER_ADDR=127.0.0.1 MASTER_PORT=p \
-        python tests/torch_world.py OUT_DIR INPUT_DIR MODEL_AXIS
+        python tests/torch_world.py OUT_DIR INPUT_DIR MODEL_AXIS [seeded]
 
 Every rank of the world runs the same checks in the same order (each a
 sequence of collectives), over gloo, on one intra-op thread, and writes what
@@ -92,6 +92,64 @@ def encode_images():
                                               dtype=np.uint8)
 
 
+def step_variables(tok) -> dict:
+    """The start of the step checks: the ``{"params", "batch_stats"}`` tree
+    of the model at these sizes, drawn from a generator seeded 0 with
+    he_normal for every conv, dense and stacked projection kernel, zero
+    biases, U(-0.05, 0.05) embeddings, unit norm scales and statistics (0,
+    1), in module order. The port's ``init_weights`` draws the JAX package's
+    families instead (lecun_normal backbones, glorot_uniform FPN and
+    vocabulary layer, normal(0.01) head trunks); on those, three steps'
+    Adam moments of every float32 route (the JAX package's, one process,
+    the sharded step) lie ~1e-2 (median tensor) from a float64 witness
+    (``tests/float64_witness.py``), so a bar between two float32 routes
+    would measure rounding, not the sharded path. On these weights the
+    routes agree within the checks' bars."""
+    from fpn_mt_image_captioning_torch.models.attention import MultiViewAttention
+    from fpn_mt_image_captioning_torch.models.layers import BatchNorm32, he_normal_
+    from fpn_mt_image_captioning_torch.models.transformer import Encoder, Transformer
+    from fpn_mt_image_captioning_torch.weights import to_flax
+
+    cfg = config(mesh=False)
+    with torch.device("meta"):
+        model = Transformer(
+            num_layers=cfg.num_layers, d_model=cfg.d_model, num_heads=cfg.num_heads,
+            dff=cfg.dff, input_vocab_size=cfg.input_vocab_size,
+            target_vocab_size=len(tok.index_word), max_seq_len=MAX_LEN,
+            num_pyramids=cfg.num_of_pyramids, baseline_index=cfg.baseline_index,
+            backbone_name=cfg.backbone, n_conv_submodule=cfg.n_conv_submodule,
+            activation=cfg.activation, bn_momentum=cfg.bn_momentum,
+            compute_dtype=torch.float32)
+    model = model.to_empty(device="cpu")
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                he_normal_(m.weight, m.weight[0].numel(), g)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, torch.nn.Linear):
+                he_normal_(m.weight, m.in_features, g)
+                m.bias.zero_()
+            elif isinstance(m, torch.nn.Embedding):
+                m.weight.uniform_(-0.05, 0.05, generator=g)
+            elif isinstance(m, (torch.nn.LayerNorm, BatchNorm32)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, BatchNorm32):
+                    m.running_mean.zero_()
+                    m.running_var.fill_(1.0)
+            elif isinstance(m, MultiViewAttention):
+                for w in (m.wq, m.wo):
+                    he_normal_(w, w.shape[-2], g)
+                m.bq.zero_()
+                m.bo.zero_()
+            elif isinstance(m, Encoder):
+                he_normal_(m.kv_proj, m.kv_proj.shape[-2], g)
+                m.kv_bias.zero_()
+    return to_flax(model)
+
+
 def beam_model(variables):
     """The decoder of the beam-search check holding ``variables`` (the JAX
     package's decode-only init)."""
@@ -113,6 +171,8 @@ def local_rows(a, rank: int, world: int):
 # ---------------------------------------------------------------------------
 def main() -> None:
     out, inputs, model_axis = Path(sys.argv[1]), Path(sys.argv[2]), int(sys.argv[3])
+    # "seeded": the step checks start from the port's seeded init instead
+    seeded_start = sys.argv[4:] == ["seeded"]
     torch.set_num_threads(1)
     from fpn_mt_image_captioning_torch.parallel import mesh as pm
     from fpn_mt_image_captioning_torch.parallel import multihost as mh
@@ -147,8 +207,9 @@ def main() -> None:
     pipes = {}
     for dropout in (0.0, 0.1):
         tag = f"step_dropout{dropout}"
-        pipe = Pipeline(tok, MAX_LEN, config(dropout, model_axis), seed=0, device="cpu",
-                        checkpoint_path=str(out / f"ckpt_{tag}_{rank}"))
+        pipe = Pipeline(tok, MAX_LEN, config(dropout, model_axis),
+                        None if seeded_start else step_variables(tok), seed=0,
+                        device="cpu", checkpoint_path=str(out / f"ckpt_{tag}_{rank}"))
         assert pipe.mesh is not None and tuple(pipe.mesh.shape) == (world // model_axis,
                                                                    model_axis)
         losses = [pipe.train_step(local_rows(images, rank, world), local_rows(caps, rank, world))
