@@ -41,6 +41,11 @@ program runs (``export.py``). Fast mode freezes a finished beam at +0 with
 pad, so frozen beams keep their order under the stable sort and the first
 ``<end>`` cuts the result: the steps after every beam has finished change
 nothing, and both trip counts give the same result.
+
+Each step of ``beam_search`` is a ``beam.step`` span (``utils.profiling``):
+the stop test ``beam.sync``, then ``beam.issue``, the expansion and the
+loop's bookkeeping, whose decode step is ``beam.kernels``. The stop test
+that ends the loop early is a step of its own, without an issue.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 from ..models.positional import raw_positional_encoding
 from ..ops.fused_decoder import (fused_decode_step, init_fused_cache, no_grad,
                                  pack_decoder_weights)
+from ..utils.profiling import annotate
 from .noise import gumbel
 
 __all__ = ["beam_search", "greedy_decode", "sample_decode", "sample_tokens",
@@ -133,12 +139,13 @@ def _fused_expand(model, enc_output, beam_n: int, max_len: int, packed):
     def expand(tokens, t, scores, finished):
         nonlocal src_t
         x_emb = emb_table[tokens] + pe_table[t]
-        top_s, top_i, _ = fused_decode_step(
-            packed, cache, x_emb, src_t, t,
-            scores.reshape(bk, 1), finished.reshape(bk, 1).float(),
-            num_layers=model.num_layers, beam=beam_n, num_heads=model.num_heads,
-            topk=beam_n, activation=model.activation,
-        )
+        with annotate("beam.kernels"):
+            top_s, top_i, _ = fused_decode_step(
+                packed, cache, x_emb, src_t, t,
+                scores.reshape(bk, 1), finished.reshape(bk, 1).float(),
+                num_layers=model.num_layers, beam=beam_n, num_heads=model.num_heads,
+                topk=beam_n, activation=model.activation,
+            )
         # candidates are beam-major, each beam's descending with ids ascending on
         # ties, so a STABLE sort breaks ties exactly as the full (B, K·V) top-k
         new_scores, order = _top(top_s.reshape(batch, beam_n * beam_n), beam_n)
@@ -168,7 +175,8 @@ def _cached_expand(model, enc_output, beam_n: int, max_len: int, parity: bool):
 
     def expand(tokens, t, scores, finished):
         nonlocal src
-        logits, _ = model.decode_step(tokens, t, cache, src)
+        with annotate("beam.kernels"):
+            logits, _ = model.decode_step(tokens, t, cache, src)
         log_probs = torch.log_softmax(logits.float(), dim=-1)
         vocab = log_probs.shape[-1]
         log_probs = log_probs.reshape(batch, beam_n, vocab)
@@ -228,22 +236,31 @@ def beam_search(
     idx = torch.arange(max_len, device=dev)[None, :]
 
     t = 0
-    while t < max_len and (fixed_steps or not bool((done if parity else finished).all())):
-        new_scores, beam_idx, new_tokens = expand(tokens, t, scores, finished)
-        seqs = seqs.gather(1, beam_idx[..., None].expand(-1, -1, max_len))
-        seqs[:, :, t] = new_tokens.to(torch.int32)
-        if parity:
-            finished = new_tokens == end_token
-            newly = finished[:, 0] & ~done
-            cand = torch.where(idx < t, seqs[:, 0, :], 0)   # the trailing <end> dropped
-            res_seq = torch.where(newly[:, None], cand, res_seq)
-            res_len = torch.where(newly, t, res_len)
-            res_score = torch.where(newly, new_scores[:, 0], res_score)
-            done |= newly
-        else:
-            finished = finished.gather(1, beam_idx) | (new_tokens == end_token)
-        scores = new_scores
-        tokens = new_tokens.reshape(-1).long()
+    while t < max_len:
+        # a step: the stop test (the loop's one host sync), then the expansion
+        # and the bookkeeping that issue the step's work
+        with annotate("beam.step"):
+            if not fixed_steps:
+                with annotate("beam.sync", wait=True):
+                    stop = bool((done if parity else finished).all())
+                if stop:
+                    break
+            with annotate("beam.issue"):
+                new_scores, beam_idx, new_tokens = expand(tokens, t, scores, finished)
+                seqs = seqs.gather(1, beam_idx[..., None].expand(-1, -1, max_len))
+                seqs[:, :, t] = new_tokens.to(torch.int32)
+                if parity:
+                    finished = new_tokens == end_token
+                    newly = finished[:, 0] & ~done
+                    cand = torch.where(idx < t, seqs[:, 0, :], 0)   # the trailing <end> dropped
+                    res_seq = torch.where(newly[:, None], cand, res_seq)
+                    res_len = torch.where(newly, t, res_len)
+                    res_score = torch.where(newly, new_scores[:, 0], res_score)
+                    done |= newly
+                else:
+                    finished = finished.gather(1, beam_idx) | (new_tokens == end_token)
+                scores = new_scores
+                tokens = new_tokens.reshape(-1).long()
         t += 1
 
     best_seq, best_score = seqs[:, 0, :], scores[:, 0]

@@ -46,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.collectives import gather_shards, replicated_input
+from ..utils.profiling import annotate
 from .attention import MultiHeadAttention, MultiViewAttention
 from .feature_extractor import FeatureExtractor
 from .layers import Dense, Dropout, LayerNorm32, dropout, normalize_images, resolve_activation
@@ -143,7 +144,9 @@ class Encoder(nn.Module):
         for k, i in enumerate(self.x_order):
             v = views[i]
             t = v.flatten(2).transpose(1, 2)                         # (B, h·w, d)
-            pe = torch.as_tensor(self.pos_encoding[: t.shape[1]], device=t.device)
+            # a copy from host memory: it waits for the card's queued work
+            with annotate("model.pe_upload", wait=True):
+                pe = torch.as_tensor(self.pos_encoding[: t.shape[1]], device=t.device)
             t = self.layernorm1(t) + pe.to(t.dtype)
             embedded.append(dropout(t, drop, f"encoder.dropout1_{k}"))
         baseline, sources = embedded[-1], embedded[:-1]
@@ -216,7 +219,8 @@ class Decoder(nn.Module):
         h = self.embedding(x)  # unscaled — reference parity
         if self.compute_dtype is not None:
             h = h.to(self.compute_dtype)
-        pe = torch.as_tensor(self.pos_encoding[: x.shape[1]], device=h.device)
+        with annotate("model.pe_upload", wait=True):
+            pe = torch.as_tensor(self.pos_encoding[: x.shape[1]], device=h.device)
         h = dropout(h + pe.to(h.dtype), drop, "decoder.dropout")
         attention_weights = {}
         for i in range(self.num_layers):
@@ -245,7 +249,8 @@ class Decoder(nn.Module):
         """(B,) token ids at position ``pos`` → the (B, d) hidden state; the
         self caches are written in place and returned in ``cache``."""
         h = self.embedding(tokens)[:, None, :]
-        pe = torch.as_tensor(self.pos_encoding[pos], device=h.device)
+        with annotate("model.pe_upload", wait=True):
+            pe = torch.as_tensor(self.pos_encoding[pos], device=h.device)
         h = h + pe.to(h.dtype)
         for i, c in enumerate(cache):
             h, c["k_self"], c["v_self"] = getattr(self, f"layer_{i}").decode_step(

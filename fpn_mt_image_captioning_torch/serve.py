@@ -19,8 +19,17 @@ Endpoints:
                        0 < top_p <= 1, else 400; on a beam server they are a
                        400
   GET  /healthz        liveness and model/config info
-  GET  /stats          request/batch counters, batch fill, device-batch times
-  POST /stats/reset    zero the counters and the timing window
+  GET  /stats          request/batch counters, batch fill, and the span
+                       summaries of ``utils.profiling.REGISTRY`` (``steps``,
+                       ``mean_ms``, ``p50_ms``, ``p90_ms``, ``p99_ms``,
+                       ``self_ms``): ``device_batch_ms`` (the ``serve.batch``
+                       spans: a device batch, from its call to its host
+                       arrays), ``queue_wait_ms`` (``serve.queue_wait``: a
+                       request, from its arrival until the batcher takes its
+                       batch), and ``spans``, each ``predict.*`` and
+                       ``beam.*`` span of the caption path
+  POST /stats/reset    zero the counters and those spans (a batch in flight
+                       across the reset does not count into the new window)
 
 Overload: the request queue is bounded (``max_queue``, default 8 ×
 serve_batch); beyond it a request gets 503 + Retry-After. An undecodable
@@ -60,7 +69,10 @@ import numpy as np
 from .config import Config
 from .data.dataset import load_image
 from .train.pipeline import Pipeline
-from .utils.profiling import StepTimer
+from .utils.profiling import REGISTRY, annotate
+
+# the caption path's spans, which /stats shows under ``spans``
+CAPTION_SPANS = ("predict.", "beam.")
 
 __all__ = ["QueueFull", "DynamicBatcher", "CaptionServer", "decode_image_bytes",
            "make_server", "server_from_argv", "main"]
@@ -93,12 +105,12 @@ class DynamicBatcher:
         self.sample_seed = sample_seed
         # backpressure: beyond this many queued images submit() raises
         self.max_queue = 8 * batch if max_queue is None else max_queue
-        self._queue: list[tuple[np.ndarray, float, float, Future]] = []
+        # (image, temperature, top_p, future, arrival on time.perf_counter_ns)
+        self._queue: list[tuple[np.ndarray, float, float, Future, int]] = []
         self._lock = threading.Condition()
         self._closed = False
         self.stats = {"requests": 0, "batches": 0, "images_padded": 0, "errors": 0,
                       "rejected": 0}
-        self.timer = StepTimer(window=512)   # wall time per device batch
         self._batch_seq = 0   # the sampling seed's counter; reset_stats keeps it
         # bumped by reset_stats: a batch in flight across a reset must not
         # count into the freshly zeroed window
@@ -107,13 +119,14 @@ class DynamicBatcher:
         self._thread.start()
 
     def reset_stats(self) -> None:
-        """Zero the counters and the timing window (POST /stats/reset). The
-        sampling seed's sequence goes on: a replayed seed would replay
-        captions."""
+        """Zero the counters and the spans that ``/stats`` shows (POST
+        /stats/reset): ``serve.*``, ``predict.*`` and ``beam.*``; the
+        process' other spans are kept. The sampling seed's sequence goes on:
+        a replayed seed would replay captions."""
         with self._lock:
             for k in self.stats:
                 self.stats[k] = 0
-            self.timer = StepTimer(window=512)
+            REGISTRY.reset("serve.", *CAPTION_SPANS)
             self._stats_gen += 1
 
     def queue_depth(self) -> int:
@@ -129,7 +142,7 @@ class DynamicBatcher:
                 self.stats["rejected"] += 1
                 raise QueueFull(f"{len(self._queue)} images already queued "
                                 f"(max_queue={self.max_queue}); retry later")
-            self._queue.append((img, temperature, top_p, fut))
+            self._queue.append((img, temperature, top_p, fut, time.perf_counter_ns()))
             self.stats["requests"] += 1
             self._lock.notify()
         return fut
@@ -149,6 +162,9 @@ class DynamicBatcher:
                     break
                 self._lock.wait(timeout=remaining)
             items, self._queue = self._queue[: self.batch], self._queue[self.batch:]
+            taken = time.perf_counter_ns()
+            for *_, arrived in items:
+                REGISTRY.record("serve.queue_wait", arrived, taken)
             return items
 
     def _worker(self):
@@ -157,7 +173,7 @@ class DynamicBatcher:
             if items is None:
                 return
             with self._lock:
-                gen, timer = self._stats_gen, self.timer
+                gen = self._stats_gen
             pad = self.batch - len(items)
             failed = False
             try:
@@ -166,29 +182,28 @@ class DynamicBatcher:
                 imgs = np.stack([im for im, *_ in items])
                 if pad:
                     imgs = np.concatenate([imgs, np.zeros((pad, *imgs.shape[1:]), imgs.dtype)])
-                timer.start()
-                if self.decode == "sample":
-                    temps = np.ones(self.batch, np.float32)
-                    tps = np.ones(self.batch, np.float32)
-                    for i, (_, temp, tp, _) in enumerate(items):
-                        temps[i], tps[i] = temp, tp
-                    seqs, lengths = self.pipeline.sample_batch(
-                        imgs, temperature=temps,
-                        # no nucleus (and no per-step sort) where no row asks for it
-                        top_p=None if (tps >= 1.0).all() else tps,
-                        # a seed a batch: identical requests in two batches differ,
-                        # and a server replays its own sequence
-                        seed=self.sample_seed + self._batch_seq)
-                else:
-                    seqs, lengths = self.pipeline.predict_batch(imgs)
-                timer.stop()
-                for i, (*_, fut) in enumerate(items):
+                with annotate("serve.batch", cpu=True):
+                    if self.decode == "sample":
+                        temps = np.ones(self.batch, np.float32)
+                        tps = np.ones(self.batch, np.float32)
+                        for i, (_, temp, tp, *_) in enumerate(items):
+                            temps[i], tps[i] = temp, tp
+                        seqs, lengths = self.pipeline.sample_batch(
+                            imgs, temperature=temps,
+                            # no nucleus (and no per-step sort) where no row asks for it
+                            top_p=None if (tps >= 1.0).all() else tps,
+                            # a seed a batch: identical requests in two batches differ,
+                            # and a server replays its own sequence
+                            seed=self.sample_seed + self._batch_seq)
+                    else:
+                        seqs, lengths = self.pipeline.predict_batch(imgs)
+                for i, (*_, fut, _) in enumerate(items):
                     if not fut.done():   # close() may have failed it already
                         fut.set_result((self.pipeline.to_caption(seqs[i], lengths[i]),
                                         int(lengths[i])))
             except BaseException as e:  # noqa: BLE001 - every caller must unblock
                 failed = True
-                for *_, fut in items:
+                for *_, fut, _ in items:
                     if not fut.done():
                         fut.set_exception(e)
             with self._lock:
@@ -206,7 +221,7 @@ class DynamicBatcher:
         self._thread.join(timeout=30)
         with self._lock:
             leftovers, self._queue = self._queue, []
-        for *_, fut in leftovers:
+        for *_, fut, _ in leftovers:
             if not fut.done():
                 fut.set_exception(RuntimeError("server shutting down"))
 
@@ -233,6 +248,10 @@ class CaptionServer(ThreadingHTTPServer):
         self.batcher.close()
         self.pipeline.close()
         self.server_close()   # release the listening socket (shutdown() does not)
+
+
+def _rounded(summary: dict) -> dict:
+    return {k: round(v, 2) for k, v in summary.items()}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -268,12 +287,14 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/stats":
             with srv.batcher._lock:
                 st = dict(srv.batcher.stats)
-                timer = srv.batcher.timer
             done = st["batches"] * srv.batcher.batch - st["images_padded"]
             st["mean_batch_fill"] = round(done / st["batches"], 2) if st["batches"] else 0.0
             st["queue_depth"] = srv.batcher.queue_depth()
             st["max_queue"] = srv.batcher.max_queue
-            st["device_batch_ms"] = {k: round(v, 2) for k, v in timer.summary().items()}
+            st["device_batch_ms"] = _rounded(REGISTRY.summary("serve.batch"))
+            st["queue_wait_ms"] = _rounded(REGISTRY.summary("serve.queue_wait"))
+            st["spans"] = {name: _rounded(REGISTRY.summary(name)) for name in REGISTRY.names()
+                           if name.startswith(CAPTION_SPANS)}
             self._reply(200, st)
         else:
             self._reply(404, {"error": f"no such path {self.path}"})
@@ -333,7 +354,7 @@ class _Handler(BaseHTTPRequestHandler):
                               "latency_ms": round((time.perf_counter() - t0) * 1000, 1)})
         except QueueFull as e:
             # shed load: tell the client to back off about one batch time
-            ms = srv.batcher.timer.summary().get("p50_ms", 100.0)
+            ms = REGISTRY.summary("serve.batch").get("p50_ms", 100.0)
             self._reply(503, {"error": f"overloaded: {e}"},
                         extra_headers={"Retry-After": str(max(1, round(ms / 1000)))})
         except Exception as e:

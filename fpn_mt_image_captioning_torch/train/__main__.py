@@ -26,7 +26,11 @@ then exports the serving artifact of those weights there
 (``export.export_serving``; a failure is printed, not raised: the weights
 are saved by then). With ``profile_dir`` a ``StepTracer`` writes a
 ``torch.profiler`` trace of training steps 1 to 3 there (CPU and CUDA
-activities, ``*.pt.trace.json``).
+activities, ``*.pt.trace.json``); each step's phases lie in it as named
+``user_annotation`` ranges (``utils.profiling``): ``train.step`` over
+``train.issue`` (``train.upload``, ``train.forward``, ``train.backward``,
+``train.clip`` over ``train.clip.wait``, ``train.optimizer``) and
+``train.readback``.
 
 Without a checkpoint to restore, the pipeline boots its feature extractor
 from the Keras ``.h5`` file ``retinanet_weight_path`` where one is given (a

@@ -85,6 +85,7 @@ from ..parallel.collectives import sum_tensors_
 from ..parallel.mesh import make_mesh, mesh_shape
 from ..parallel.multihost import (barrier, gather_rows, globalize_batch, is_primary, local_rank,
                                   rank, world_size)
+from ..utils.profiling import annotate
 from ..utils.weight_import import ImportReport, import_retinanet_weights
 from ..weights import (from_flax, init_weights, read_flax_msgpack, to_flax,
                        train_state_from_flax, train_state_to_flax, write_flax_msgpack)
@@ -149,16 +150,20 @@ def build_train_step_fn(learning_rate, *, seed: int, dropout_rate: float,
                    rows: tuple[int, int] | None = None):
         tar_inp, tar_real = caption_token[:, :-1], caption_token[:, 1:]
         model = state.model
-        drop = Dropout(dropout_rate, seed, state.step, img.device, rows)
-        logits, _ = model.forward_train(img, tar_inp, create_masks(tar_inp), drop)
-        loss = masked_sparse_ce(tar_real, logits, data_group)
+        with annotate("train.forward"):
+            drop = Dropout(dropout_rate, seed, state.step, img.device, rows)
+            logits, _ = model.forward_train(img, tar_inp, create_masks(tar_inp), drop)
+            loss = masked_sparse_ce(tar_real, logits, data_group)
         params = list(model.parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        loss = loss.detach()
-        sum_tensors_(grads + [loss], data_group)
-        clip_by_per_variable_norm_(grads, clipnorm, sharded, model_group)
-        opt_state = keras_adam_(params, grads, state.opt_state, learning_rate)
+        with annotate("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            loss = loss.detach()
+            sum_tensors_(grads + [loss], data_group)
+        with annotate("train.clip"):
+            clip_by_per_variable_norm_(grads, clipnorm, sharded, model_group)
+        with annotate("train.optimizer"):
+            opt_state = keras_adam_(params, grads, state.opt_state, learning_rate)
         return TrainState(model, opt_state, state.step + 1), loss
 
     return train_step
@@ -202,51 +207,52 @@ class Pipeline:
         JAX package boots. ``checkpoint_path``: the
         directory of this pipeline's checkpoints, which makes it a training
         pipeline; it restores the latest checkpoint there, if any."""
-        cfg = self.config = config or Config()
-        self.device = resolve_device(device)
-        self.mesh = _mesh_of(cfg, self.device)
-        self._placements: dict = {}
-        self.tokenizer = (load_tokenizer_from_path(tokenizer)
-                          if isinstance(tokenizer, str) else tokenizer)
-        self.max_seq_len = max_seq_len
-        self.target_vocab_size = len(self.tokenizer.index_word)
-        self.start_token = self.tokenizer.word_index["<start>"]
-        self.end_token = self.tokenizer.word_index["<end>"]
-        self.dtype = getattr(torch, cfg.compute_dtype)
-        self.state: TrainState | None = None
-        if checkpoint_path is None:
-            model = self._initial_model(variables, seed)
-            if variables is None and cfg.retinanet_weight_path:
-                self._boot_from_retinanet(model)
-            self._use(model)
-            return
-        self.ckpt_manager = CheckpointManager(checkpoint_path, max_to_keep=100)
-        self.smart_ckpt_saver = SmartCheckpointSaver(
-            self.ckpt_manager, epochs=cfg.epochs, min_epoch_to_break=cfg.min_epoch_to_break,
-            gap_of_dead_epoch=cfg.gap_of_dead_epoch)
-        # the reference builds the schedule with dff, not d_model
-        self.learning_rate = custom_schedule(
-            cfg.dff if cfg.schedule_uses_dff else cfg.d_model, cfg.warm_up_steps)
-        self._train_step = build_train_step_fn(self.learning_rate, seed=cfg.seed,
-                                               dropout_rate=cfg.dropout_rate)
-        self.train_loss_history: list[float] = []
-        master = self._initial_model(variables, seed).to(self.device)
-        self.state = TrainState(master, keras_adam_init(list(master.parameters())), 0)
-        restored = self.ckpt_manager.restore(self.state_tree())
-        if restored is not None:
-            self.load_state_tree(restored)
-            print("Latest checkpoint restored!!")
-        elif cfg.retinanet_weight_path:
-            self._boot_from_retinanet(self.state.model)
-        if self.mesh is not None:
-            from ..parallel.train import make_sharded_train_step, shard_state
+        with annotate("pipeline.init"):
+            cfg = self.config = config or Config()
+            self.device = resolve_device(device)
+            self.mesh = _mesh_of(cfg, self.device)
+            self._placements: dict = {}
+            self.tokenizer = (load_tokenizer_from_path(tokenizer)
+                              if isinstance(tokenizer, str) else tokenizer)
+            self.max_seq_len = max_seq_len
+            self.target_vocab_size = len(self.tokenizer.index_word)
+            self.start_token = self.tokenizer.word_index["<start>"]
+            self.end_token = self.tokenizer.word_index["<end>"]
+            self.dtype = getattr(torch, cfg.compute_dtype)
+            self.state: TrainState | None = None
+            if checkpoint_path is None:
+                model = self._initial_model(variables, seed)
+                if variables is None and cfg.retinanet_weight_path:
+                    self._boot_from_retinanet(model)
+                self._use(model)
+                return
+            self.ckpt_manager = CheckpointManager(checkpoint_path, max_to_keep=100)
+            self.smart_ckpt_saver = SmartCheckpointSaver(
+                self.ckpt_manager, epochs=cfg.epochs, min_epoch_to_break=cfg.min_epoch_to_break,
+                gap_of_dead_epoch=cfg.gap_of_dead_epoch)
+            # the reference builds the schedule with dff, not d_model
+            self.learning_rate = custom_schedule(
+                cfg.dff if cfg.schedule_uses_dff else cfg.d_model, cfg.warm_up_steps)
+            self._train_step = build_train_step_fn(self.learning_rate, seed=cfg.seed,
+                                                   dropout_rate=cfg.dropout_rate)
+            self.train_loss_history: list[float] = []
+            master = self._initial_model(variables, seed).to(self.device)
+            self.state = TrainState(master, keras_adam_init(list(master.parameters())), 0)
+            restored = self.ckpt_manager.restore(self.state_tree())
+            if restored is not None:
+                self.load_state_tree(restored)
+                print("Latest checkpoint restored!!")
+            elif cfg.retinanet_weight_path:
+                self._boot_from_retinanet(self.state.model)
+            if self.mesh is not None:
+                from ..parallel.train import make_sharded_train_step, shard_state
 
-            self.state, self._placements = shard_state(
-                self.mesh, self.state, tp=cfg.mesh.model_axis_size > 1)
-            self._train_step = make_sharded_train_step(
-                self.mesh, self.learning_rate, self._placements, seed=cfg.seed,
-                dropout_rate=cfg.dropout_rate)
-        self._serve_master()
+                self.state, self._placements = shard_state(
+                    self.mesh, self.state, tp=cfg.mesh.model_axis_size > 1)
+                self._train_step = make_sharded_train_step(
+                    self.mesh, self.learning_rate, self._placements, seed=cfg.seed,
+                    dropout_rate=cfg.dropout_rate)
+            self._serve_master()
 
     def _initial_model(self, variables: Mapping | None, seed: int | None) -> Transformer:
         """The float32 model on the CPU with ``variables`` (a tree that does
@@ -447,15 +453,19 @@ class Pipeline:
         Over a mesh the batch is this rank's rows (zero-padded to its data
         share), every rank steps together, and the loss is the global
         batch's."""
-        img, caption_token = np.asarray(img), np.asarray(caption_token, np.int64)
-        if self.mesh is not None:
-            img, _ = self._pad_batch(img)
-            caption_token, _ = self._pad_batch(caption_token)
-        img = torch.as_tensor(img, device=self.device)
-        caption_token = torch.as_tensor(caption_token, device=self.device)
-        self.state, loss = self._train_step(self.state, img, caption_token)
-        self._stale = True
-        loss = float(loss)
+        with annotate("train.step", cpu=True):
+            with annotate("train.issue"):
+                img, caption_token = np.asarray(img), np.asarray(caption_token, np.int64)
+                if self.mesh is not None:
+                    img, _ = self._pad_batch(img)
+                    caption_token, _ = self._pad_batch(caption_token)
+                with annotate("train.upload"):
+                    img = torch.as_tensor(img, device=self.device)
+                    caption_token = torch.as_tensor(caption_token, device=self.device)
+                self.state, loss = self._train_step(self.state, img, caption_token)
+                self._stale = True
+            with annotate("train.readback", wait=True):
+                loss = float(loss)
         self.train_loss_history.append(loss)
         return loss
 
@@ -572,10 +582,13 @@ class Pipeline:
     def encode(self, images) -> torch.Tensor:
         """(B, S, S, 3) uint8 or [-1, 1] float images → (B, Lenc, d_model)."""
         self._sync()
-        images = torch.as_tensor(np.asarray(images), device=self.device)
-        if self.backbone_packed is not None:
-            return fused_encode(self.transformer, self.backbone_packed, images)
-        return self.transformer.encode(images)
+        images = np.asarray(images)
+        with annotate("predict.upload"):
+            images = torch.as_tensor(images, device=self.device)
+        with annotate("predict.encode"):
+            if self.backbone_packed is not None:
+                return fused_encode(self.transformer, self.backbone_packed, images)
+            return self.transformer.encode(images)
 
     def predict_batch(self, images, beam_n: int | None = None):
         """Caption a batch of images, (B, S, S, 3) uint8 or float in [-1, 1].
@@ -590,26 +603,27 @@ class Pipeline:
         (``parallel.train.make_sharded_beam_search``: whole weights, no
         collective); every rank calls this with as many rows. In a world of
         several ranks without a mesh it raises, as the JAX package does."""
-        cfg = self.config
-        beam_n = cfg.beam_search_n if beam_n is None else beam_n
-        self._refuse_ranks_without_mesh("predict_batch")
-        images = np.asarray(images)
-        n_real = images.shape[0]
-        limit = cfg.max_decode_rows
-        ndev = self._local_data_share
-        if limit and -(-n_real // ndev) * beam_n > limit:
-            chunk_b = max(1, limit // beam_n) * ndev
-            parts = []
-            for i in range(0, n_real, chunk_b):
-                chunk = images[i : i + chunk_b]
-                if chunk.shape[0] < chunk_b:
-                    pad = np.zeros((chunk_b - chunk.shape[0], *chunk.shape[1:]), chunk.dtype)
-                    chunk = np.concatenate([chunk, pad])
-                parts.append(self._predict_chunk(chunk, beam_n))
-            seqs = np.concatenate([p[0] for p in parts])[:n_real]
-            lengths = np.concatenate([p[1] for p in parts])[:n_real]
-            return seqs, lengths
-        return self._predict_chunk(images, beam_n)
+        with annotate("predict.call", cpu=True):
+            cfg = self.config
+            beam_n = cfg.beam_search_n if beam_n is None else beam_n
+            self._refuse_ranks_without_mesh("predict_batch")
+            images = np.asarray(images)
+            n_real = images.shape[0]
+            limit = cfg.max_decode_rows
+            ndev = self._local_data_share
+            if limit and -(-n_real // ndev) * beam_n > limit:
+                chunk_b = max(1, limit // beam_n) * ndev
+                parts = []
+                for i in range(0, n_real, chunk_b):
+                    chunk = images[i : i + chunk_b]
+                    if chunk.shape[0] < chunk_b:
+                        pad = np.zeros((chunk_b - chunk.shape[0], *chunk.shape[1:]), chunk.dtype)
+                        chunk = np.concatenate([chunk, pad])
+                    parts.append(self._predict_chunk(chunk, beam_n))
+                seqs = np.concatenate([p[0] for p in parts])[:n_real]
+                lengths = np.concatenate([p[1] for p in parts])[:n_real]
+                return seqs, lengths
+            return self._predict_chunk(images, beam_n)
 
     def _refuse_ranks_without_mesh(self, what: str) -> None:
         if world_size() > 1 and self.mesh is None:
@@ -639,7 +653,8 @@ class Pipeline:
                 start_token=self.start_token, end_token=self.end_token,
                 parity=cfg.beam_parity_mode, fused=fused, packed=self.packed,
             )
-        return seqs[:n_real].cpu().numpy(), lengths[:n_real].cpu().numpy()
+        with annotate("predict.to_host", wait=True):
+            return seqs[:n_real].cpu().numpy(), lengths[:n_real].cpu().numpy()
 
     def _sharded_beam_search(self, beam_n: int):
         """The sharded fused beam search of the served weights, by beam

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import sum_over
+from ..utils.profiling import annotate
 
 __all__ = ["custom_schedule", "custom_schedule_rough", "clip_by_per_variable_norm_",
            "KerasAdamState", "keras_adam_init", "keras_alpha", "keras_adam_"]
@@ -77,8 +78,9 @@ def custom_schedule_rough(ratio_x1: float = 5, ratio_x2: float = 2, ratio_x3: fl
 def clip_by_per_variable_norm_(grads: list[torch.Tensor], max_norm: float = 1.0,
                                sharded: list[bool] | None = None, model_group=None) -> None:
     """Scale each gradient in place to at most ``max_norm`` by its own norm.
-    The scales come to the host once (one synchronisation), so the scaling
-    is one ``_foreach`` call whatever the number of tensors.
+    The scales come to the host once (one synchronisation, the
+    ``train.clip.wait`` span), so the scaling is one ``_foreach`` call
+    whatever the number of tensors.
 
     Under tensor parallelism a gradient marked in ``sharded`` is this rank's
     shard of its variable: its norm is the whole variable's, the square
@@ -90,7 +92,9 @@ def clip_by_per_variable_norm_(grads: list[torch.Tensor], max_norm: float = 1.0,
         whole = sum_over(torch.where(mask, norms * norms, 0.0), model_group).sqrt()
         norms = torch.where(mask, whole, norms)
     scales = torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
-    torch._foreach_mul_(grads, scales.tolist())
+    with annotate("train.clip.wait", wait=True):
+        scales = scales.tolist()
+    torch._foreach_mul_(grads, scales)
 
 
 class KerasAdamState(NamedTuple):

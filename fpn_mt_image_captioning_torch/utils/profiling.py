@@ -1,37 +1,242 @@
 """Profiling and timing (port of ``fpn_mt_image_captioning_tpu/utils/profiling.py``):
 
+  * ``annotate(name, cpu=False, wait=False)`` — a named span, the port's
+    only one. With
+    no profiler running it reads the host clock at its enter and exit and
+    counts the span into ``REGISTRY``: no ``record_function``, no NVTX, no
+    device call, no synchronisation. Under an active ``torch.profiler``
+    (``torch.autograd._profiler_enabled()``) it is a ``record_function``
+    range instead: a ``user_annotation`` event on the trace's clock, and an
+    NVTX range under ``emit_nvtx``; nothing enters the registry then (the
+    profiler slows the host). While ``torch.export`` traces it does nothing,
+    so an exported program holds no trace of it;
+  * ``REGISTRY`` — the process' spans (a ``SpanRegistry``): for each name a
+    count, total, self and wait time since the last ``reset``, and a ring of
+    the latest durations; ``summary(name)`` gives ``steps``, ``mean_ms``,
+    ``p50_ms``, ``p90_ms``, ``p99_ms`` and ``self_ms``, ``cpu_ms`` for spans
+    that take the thread's CPU time, and ``wait_ms`` and ``host_p50_ms``
+    for spans in which the host waited for the card. The server's
+    ``/stats`` and the benchmark's per-layer readers (``gpubench/
+    metrics/``) read it;
   * ``trace(logdir)`` — a ``torch.profiler`` trace (CPU and, on the card,
     CUDA activities) of the block it wraps, written into ``logdir`` by
     ``tensorboard_trace_handler`` (``*.pt.trace.json``, a Chrome trace that
-    TensorBoard's PyTorch profiler plugin and Perfetto read);
-  * ``annotate(name)`` — a named span: ``record_function`` in the trace, and
-    an NVTX range on the card;
+    TensorBoard's PyTorch profiler plugin and Perfetto read); the spans lie
+    in it as ``user_annotation`` events;
   * ``StepTracer`` — the ``--profile_dir`` surface of the ``train`` main: a
     ``trace`` over a window of training steps;
   * ``sync`` — wait for the card's work on the tensors of a tree;
-  * ``build_train_run`` / ``train_step_slope`` — n optimizer steps of the
-    real train step, and the training throughput from K and 2K of them;
-  * ``StepTimer`` — host-side rolling step timing (the server's);
   * ``cuda_kernel_times`` — the card's own time of each kernel of a call
     (the probe scripts and the smoke).
+
+The spans of the port, by layer (each nested in the one above it):
+``pipeline.init`` (``Pipeline.__init__``); ``predict.call`` (a call of
+``Pipeline.predict_batch``, with CPU time) over ``predict.upload`` (the
+images to the device), ``predict.encode``, one ``beam.step`` a step of the
+beam search (the stop test ``beam.sync``, then ``beam.issue``: the
+expansion, whose decode step is ``beam.kernels``, and the loop's
+bookkeeping) and ``predict.to_host``; ``train.step`` (a call of
+``Pipeline.train_step``, with CPU time) over ``train.issue``
+(``train.upload``, ``train.forward``, ``train.backward``, ``train.clip``,
+whose wait for the gradients' scales is ``train.clip.wait``, and
+``train.optimizer``) and ``train.readback`` (the loss to the host); the
+server's ``serve.batch`` (a device batch, with CPU time) and
+``serve.queue_wait`` (a request, from its arrival until its batch is
+taken); inside the encoder and the decoder, ``model.pe_upload`` (a
+positional-encoding table copied to the card). The waits for the card:
+``beam.sync``, ``predict.to_host``, ``train.clip.wait``,
+``train.readback`` and ``model.pe_upload`` (a copy from host memory waits
+for the work queued before it).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import threading
 import time
 from typing import Any
 
 import numpy as np
+import torch
 
-__all__ = ["trace", "annotate", "StepTracer", "sync", "train_step_slope", "build_train_run",
-           "StepTimer", "cuda_kernel_times"]
+__all__ = ["trace", "annotate", "SpanRegistry", "REGISTRY", "StepTracer", "sync",
+           "cuda_kernel_times"]
+
+_profiling = torch.autograd._profiler_enabled
+_exporting = getattr(torch.compiler, "is_exporting", lambda: False)
+_clock = time.perf_counter_ns
+_cpu_clock = time.thread_time_ns
+_open = threading.local()   # .stack: the open spans of a thread, innermost last
+
+
+class _Stat:
+    __slots__ = ("since", "count", "total_ns", "self_ns", "wait_ns", "cpu_ns", "ring", "host")
+
+    def __init__(self, since: int, ring: int):
+        self.since = since   # a span that began before this is left out
+        self.count = self.total_ns = self.self_ns = self.wait_ns = 0
+        self.cpu_ns = None   # spans with CPU time only
+        self.ring = collections.deque(maxlen=ring)   # durations
+        self.host = collections.deque(maxlen=ring)   # durations less their waits
+
+
+class SpanRegistry:
+    """The spans of a process, kept in memory; safe to use from any thread.
+
+    Per name: the count, total, self, wait and (where taken) thread CPU time
+    of the spans since the last ``reset`` of the name, and rings of the
+    latest ``ring`` durations, with and without their waits. A span that
+    began before that reset is left out: a call in flight across a reset
+    does not count into the fresh window."""
+
+    def __init__(self, ring: int = 4096):
+        self.ring = ring
+        self._lock = threading.Lock()
+        self._stats: dict[str, _Stat] = {}
+        self._resets: dict[str, int] = {}   # name prefix -> its last reset
+
+    def add(self, name: str, start_ns: int, end_ns: int, self_ns: int | None = None,
+            cpu_ns: int | None = None, wait_ns: int = 0) -> None:
+        """Count a span, from ``start_ns`` to ``end_ns`` on
+        ``time.perf_counter_ns``; ``self_ns`` is the part its child spans do
+        not cover (all of it by default), ``wait_ns`` the part the host
+        waited for the card."""
+        dur = end_ns - start_ns
+        lock = self._lock
+        lock.acquire()   # not ``with``: half its cost, in a span's own path
+        try:
+            st = self._stats.get(name)
+            if st is None:
+                since = max((t for p, t in self._resets.items() if name.startswith(p)),
+                            default=0)
+                st = self._stats[name] = _Stat(since, self.ring)
+            if start_ns >= st.since:
+                st.count += 1
+                st.total_ns += dur
+                st.self_ns += dur if self_ns is None else self_ns
+                st.wait_ns += wait_ns
+                st.ring.append(dur)
+                st.host.append(dur - wait_ns)
+                if cpu_ns is not None:
+                    st.cpu_ns = (st.cpu_ns or 0) + cpu_ns
+        finally:
+            lock.release()
+
+    def record(self, name: str, start_ns: int, end_ns: int) -> None:
+        """A span timed outside a ``with`` block (on ``time.perf_counter_ns``),
+        counted as ``annotate`` counts one: not under a profiler, not while
+        ``torch.export`` traces."""
+        if not (_exporting() or _profiling()):
+            self.add(name, start_ns, end_ns)
+
+    def reset(self, *prefixes: str) -> None:
+        """Forget the spans whose names start with one of ``prefixes`` (every
+        span without any), and those of them still open."""
+        prefixes = prefixes or ("",)
+        with self._lock:
+            now = _clock()
+            if "" in prefixes:
+                self._resets.clear()
+            for p in prefixes:
+                self._resets[p] = now
+            for name in self._stats:
+                if name.startswith(prefixes):
+                    self._stats[name] = _Stat(now, self.ring)
+
+    def names(self) -> list[str]:
+        """The names with spans since their last reset."""
+        with self._lock:
+            return sorted(name for name, st in self._stats.items() if st.count)
+
+    def summary(self, name: str) -> dict:
+        """``{}`` before the first span of ``name``; else ``steps`` (the count
+        since the last reset), ``mean_ms`` and ``self_ms`` (the means since
+        then), ``p50_ms``/``p90_ms``/``p99_ms`` (over the latest ``ring``
+        spans), ``cpu_ms`` (the mean thread CPU time) where it is taken, and
+        where the host waited for the card in such spans, ``wait_ms`` (the
+        mean wait) and ``host_p50_ms`` (the median duration less its wait)."""
+        with self._lock:
+            st = self._stats.get(name)
+            if st is None or not st.count:
+                return {}
+            count, total, self_ns, wait_ns, cpu_ns, ring, host = (
+                st.count, st.total_ns, st.self_ns, st.wait_ns, st.cpu_ns, list(st.ring),
+                list(st.host))
+        p50, p90, p99 = np.percentile(np.asarray(ring, np.float64), (50, 90, 99)) / 1e6
+        out = {"mean_ms": total / count / 1e6, "p50_ms": float(p50), "p90_ms": float(p90),
+               "p99_ms": float(p99), "steps": count, "self_ms": self_ns / count / 1e6}
+        if cpu_ns is not None:
+            out["cpu_ms"] = cpu_ns / count / 1e6
+        if wait_ns:
+            out["wait_ms"] = wait_ns / count / 1e6
+            out["host_p50_ms"] = float(np.median(np.asarray(host, np.float64))) / 1e6
+        return out
+
+
+REGISTRY = SpanRegistry()
+
+
+class annotate:
+    """A named span over a ``with`` block (see the module's docstring).
+
+    ``cpu=True`` also takes the thread's CPU time (the call-level spans: a
+    ``predict_batch``, a ``train_step``, a server batch). ``wait=True``
+    marks a span in which the host waits for the card (a synchronisation):
+    its time is wait time of every span around it on the same thread. A
+    span's self time is its duration less the part its child spans of the
+    same thread cover. A span that an exception ends is not counted (a
+    failed call's time is no call's time)."""
+
+    __slots__ = ("name", "cpu", "wait", "start_ns", "child_ns", "wait_ns", "cpu_ns", "_range",
+                 "_stack")
+
+    def __init__(self, name: str, cpu: bool = False, wait: bool = False):
+        self.name = name
+        self.cpu = cpu
+        self.wait = wait
+
+    def __enter__(self) -> "annotate":
+        if _exporting():
+            self._range = False
+        elif _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+            try:
+                stack = self._stack = _open.stack
+            except AttributeError:
+                stack = self._stack = _open.stack = []
+            self.child_ns = self.wait_ns = 0
+            if self.cpu:
+                self.cpu_ns = _cpu_clock()
+            stack.append(self)
+            self.start_ns = _clock()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._range is None:
+            end = _clock()
+            cpu = _cpu_clock() - self.cpu_ns if self.cpu else None
+            stack = self._stack
+            stack.pop()
+            dur = end - self.start_ns
+            wait = dur if self.wait else self.wait_ns
+            if stack:
+                parent = stack[-1]
+                parent.child_ns += dur
+                parent.wait_ns += wait
+            # left out too: a span inside which a profiler started
+            if exc_type is None and not _profiling():
+                REGISTRY.add(self.name, self.start_ns, end, dur - self.child_ns, cpu, wait)
+        elif self._range:
+            self._range.__exit__(exc_type, exc, tb)
 
 
 def _profiler(logdir: str):
     """A ``torch.profiler.profile`` of the CPU and, where there is one, the
     card, that writes its trace into ``logdir`` when it stops."""
-    import torch
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -50,20 +255,6 @@ def trace(logdir: str = "logs/profile"):
     finally:
         sync_all()
         prof.stop()
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named span: ``record_function`` inside an active trace, and an NVTX
-    range on the card (what ``nsys`` shows)."""
-    import torch
-
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
 
 
 class StepTracer:
@@ -101,8 +292,6 @@ class StepTracer:
 
 def sync_all() -> None:
     """Wait for all work queued on the current card (no-op without one)."""
-    import torch
-
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
@@ -122,73 +311,8 @@ def sync(tree: Any) -> None:
     """Wait until the card has computed the tensors of ``tree`` (nested
     dicts, lists and tuples): ``torch.cuda.synchronize`` on each card they
     lie on; a no-op for CPU tensors."""
-    import torch
-
     for dev in {t.device for t in _leaves(tree) if isinstance(t, torch.Tensor) and t.is_cuda}:
         torch.cuda.synchronize(dev)
-
-
-def build_train_run(model, *, batch: int, seq_len: int, image_size: int, vocab: int,
-                    schedule_dim: int = 2048, seed: int = 0, dropout_rate: float = 0.1):
-    """The n-step training runner that ``train_step_slope`` times.
-
-    ``model``: a float32 ``Transformer`` on its device, trained IN PLACE.
-    Returns ``(run, state, img, caps)``: seeded images (B, S, S, 3) and
-    caption ids (B, seq_len) on the model's device, the ``TrainState``, and
-    ``run(state, img, caps, n) → (state, loss_sum)``, which takes n optimizer
-    steps of ``build_train_step_fn``'s step (the production step: loss,
-    gradients, per-variable clipping, AMSGrad, BatchNorm statistics, dropout
-    drawn from the step) and sums their losses on the device: the sum is an
-    output, so no step's work can be left out."""
-    import torch
-
-    from ..train.pipeline import TrainState, build_train_step_fn
-    from ..train.schedule import custom_schedule, keras_adam_init
-
-    dev = next(model.parameters()).device
-    state = TrainState(model, keras_adam_init(list(model.parameters())), 0)
-    rng = np.random.default_rng(seed)
-    img = torch.as_tensor(
-        rng.standard_normal((batch, image_size, image_size, 3), dtype=np.float32) * 0.5,
-        device=dev)
-    caps = torch.as_tensor(rng.integers(1, max(vocab - 1, 2), size=(batch, seq_len)),
-                           dtype=torch.long, device=dev)
-    step_fn = build_train_step_fn(custom_schedule(schedule_dim, 4000), seed=seed,
-                                  dropout_rate=dropout_rate)
-
-    def run(state, img, caps, n: int):
-        acc = torch.zeros((), device=img.device)
-        for _ in range(n):
-            state, loss = step_fn(state, img, caps)
-            acc = acc + loss
-        return state, acc
-
-    return run, state, img, caps
-
-
-def train_step_slope(model, *, batch: int, seq_len: int, image_size: int, vocab: int, k: int,
-                     schedule_dim: int = 2048, seed: int = 0) -> dict:
-    """Training throughput from the slope: K and then 2K optimizer steps of
-    ``build_train_run``'s runner, each timed to the read-back of its loss
-    sum (which waits for the card), and ``(t(2K) − t(K)) / K`` a step, so the
-    fixed cost of a call cancels. One step runs first (kernel builds,
-    allocator). ``model`` (float32, on its device) is trained in place."""
-    run, state, img, caps = build_train_run(
-        model, batch=batch, seq_len=seq_len, image_size=image_size, vocab=vocab,
-        schedule_dim=schedule_dim, seed=seed)
-
-    def t(n):
-        nonlocal state
-        sync(img)
-        t0 = time.perf_counter()
-        state, acc = run(state, img, caps, n)
-        float(acc)
-        return time.perf_counter() - t0
-
-    t(1)
-    t1, t2 = t(k), t(2 * k)
-    step_ms = max((t2 - t1) / k, 1e-9) * 1000
-    return {"images_per_sec": batch / (step_ms / 1000), "step_ms": step_ms, "batch": batch}
 
 
 def cuda_kernel_times(fn) -> tuple[list[tuple[str, float, int]], float]:
@@ -196,7 +320,6 @@ def cuda_kernel_times(fn) -> tuple[list[tuple[str, float, int]], float]:
     ``fn`` ran on the card, and the wall ms of ``fn``, from one CUDA-profiler
     window. The window runs ``fn`` twice and keeps the second run: the
     profiler's warm-up step absorbs what tracing misses while it starts."""
-    import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
@@ -212,41 +335,3 @@ def cuda_kernel_times(fn) -> tuple[list[tuple[str, float, int]], float]:
         prof.step()
     return ([(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
              if e.self_device_time_total > 0], wall_ms)
-
-
-class StepTimer:
-    """Rolling wall-clock timer for serving steps."""
-
-    def __init__(self, window: int = 200):
-        self.window = window
-        self.times: list[float] = []
-        self._t0: float | None = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self) -> float:
-        """Record the time since ``start``. The caller waits for the device
-        first (``predict_batch`` returns host arrays)."""
-        if self._t0 is None:
-            # recording ~0 ms would drag the window's percentiles down with
-            # garbage samples: an unpaired stop is a caller bug
-            raise RuntimeError("StepTimer.stop() without a matching start()")
-        dt = time.perf_counter() - self._t0
-        self._t0 = None
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    def summary(self) -> dict:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "mean_ms": float(arr.mean() * 1000),
-            "p50_ms": float(np.percentile(arr, 50) * 1000),
-            "p90_ms": float(np.percentile(arr, 90) * 1000),
-            "p99_ms": float(np.percentile(arr, 99) * 1000),
-            "steps": len(arr),
-        }

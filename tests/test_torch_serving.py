@@ -17,6 +17,7 @@ port's by its own, exact at the model's size."""
 import io
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -37,6 +38,7 @@ from fpn_mt_image_captioning_torch import caption as pt_caption
 from fpn_mt_image_captioning_torch import serve as pt_serve
 from fpn_mt_image_captioning_torch.data.tokenizer import Tokenizer, store_tokenizer_to_path
 from fpn_mt_image_captioning_torch.train.pipeline import Pipeline
+from fpn_mt_image_captioning_torch.utils.profiling import REGISTRY
 from test_torch_slice import BEAM, CFG, MAX_LEN, SIZE, fit, slice_variables
 
 N_FILES, BATCH = 5, 2   # three CLI batches, the last one padded
@@ -255,6 +257,39 @@ def test_burst_is_batched_and_matches_offline(server, world, offline):
     assert stats["requests"] == 8 and stats["errors"] == 0
     assert stats["batches"] < 8 and stats["mean_batch_fill"] > 1   # coalesced
     assert stats["device_batch_ms"]["steps"] == stats["batches"]
+
+
+def test_stats_report_the_spans_and_reset_them(server, world):
+    """``/stats`` summarises the batcher's spans (a device batch, a
+    request's wait in the queue) and the caption path's (``spans``);
+    ``/stats/reset`` zeroes them all, and keeps the process' other spans."""
+    _, base = server
+    start = time.perf_counter_ns()
+
+    def stats():
+        with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+            return json.loads(r.read())
+
+    post(base, b"", path="/stats/reset")
+    st = stats()
+    assert (st["device_batch_ms"], st["queue_wait_ms"], st["spans"]) == ({}, {}, {})
+    assert post(base, png_bytes(world["arrays"][0]))[0] == 200
+    st = stats()
+    keys = {"steps", "mean_ms", "p50_ms", "p90_ms", "p99_ms", "self_ms"}
+    assert keys <= set(st["device_batch_ms"]) and keys <= set(st["queue_wait_ms"])
+    assert st["device_batch_ms"]["steps"] == st["queue_wait_ms"]["steps"] == 1
+    # a lone request waits out the batcher's fill window (150 ms) in the queue
+    assert st["queue_wait_ms"]["p50_ms"] >= 100
+    assert set(st["spans"]) == {"predict.call", "predict.upload", "predict.encode",
+                                "predict.to_host", "beam.step", "beam.sync", "beam.issue",
+                                "beam.kernels"}
+    assert st["spans"]["predict.call"]["steps"] == 1
+    assert st["spans"]["beam.issue"]["steps"] == st["spans"]["beam.kernels"]["steps"] >= 1
+    REGISTRY.record("other.span", start, time.perf_counter_ns())
+    post(base, b"", path="/stats/reset")
+    st = stats()
+    assert (st["device_batch_ms"], st["queue_wait_ms"], st["spans"]) == ({}, {}, {})
+    assert REGISTRY.summary("other.span")["steps"] == 1
 
 
 def test_bad_requests_are_400(server):
