@@ -78,12 +78,18 @@ line):
      five timed encodes and one run under the CUDA profiler each; launch
      counters reset just before and read just after, each decode kernel's
      non-zero and equal to the decode steps × its launches per step, the
-     backbone kernel's zero (this encode runs cuDNN); each attention
-     kernel's mean device time a launch in the traced batch-64 run beside
-     its isolated times from phase 3;
+     backbone kernel's zero (this encode runs cuDNN); the wrappers count
+     what they issue: the eager calls' launches and a shape's capture, one
+     step's a position, and none for a CUDA-graph replay, so the decode
+     steps of the timed calls are their ``beam.kernels`` spans, and in the
+     traced run (which replays) each decode kernel's launches in the
+     profiler's trace must be its steps × its launches a step; each
+     attention kernel's mean device time a launch in the traced batch-64
+     run beside its isolated times from phase 3;
  10. fused main path — the same ``predict_batch`` at batch 64 with
      ``fused_backbone=True`` (same weights): counters reset just before and
-     read just after, ``fused_ir_block`` at 17 × the encodes; then the fused
+     read just after, ``fused_ir_block`` at 17 × the encodes, and the traced
+     run's decode kernels counted in the trace as in phase 9; then the fused
      encode against the eager one in turns (eager, fused, fused, eager, five
      times), one traced encode of each, and the whole ``predict_batch`` of
      both routes in turns the same way;
@@ -105,8 +111,10 @@ line):
      state dict bitwise equal to the one the weights give directly;
      ``evaluate`` over a synthetic COCO split of 40 seeded PNGs, each with
      a colour and a bright band of its own (after a warm-up pass; counters
-     reset just before and read just after, each decode kernel at the decode
-     steps × its launches a step, the backbone kernel at zero): the image
+     reset just before and read just after, each decode kernel at the steps
+     its wrapper issued × its launches a step, none where every step
+     replayed a CUDA graph, the decode steps from the spans, the backbone
+     kernel at zero): the image
      ids in the seeded shuffle's order, the results equal to
      ``predict_batch`` over the pixels as written (not through the data
      layer), more than one distinct caption, ``metric_eval`` with all seven
@@ -267,6 +275,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -318,6 +327,14 @@ SMALL_BK = 8 * BEAM   # the rows of a batch of 8, where (c) and (d) are timed to
 # their in-situ means per launch in the traced main path
 ISOLATED: dict[str, float] = {}
 ATTENTION_KERNELS = ("self_attention", "cross_attention")   # parts of the kernels' names
+# each decode wrapper's kernels (csrc/fused_decoder.cu), by name in a profiler's trace
+DECODE_KERNELS = {
+    "decoder_linear": re.compile(r"\b(linear|linear_wgmma)_kernel\b"),
+    "decoder_add_layernorm": re.compile(r"\badd_layernorm_kernel\b"),
+    "decoder_self_attention": re.compile(r"\bself_attention(_wide)?_kernel\b"),
+    "decoder_cross_attention": re.compile(r"\bcross_attention(_mma|_wide)?_kernel\b"),
+    "decoder_logsoftmax_topk": re.compile(r"\blogsoftmax_topk(_rounds)?_kernel\b"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -911,10 +928,12 @@ def profile_run(torch, fn, means=()) -> dict:
     """One traced run of ``fn`` (after an untraced one in the same profiler
     window): wall time, the device's busy time (sum of
     kernel and copy durations; kernels of one stream do not overlap) and
-    idle share, the device time by kernel name, largest first, and for each
+    idle share, the device time by kernel name, largest first, for each
     name part in ``means`` the launches and mean µs a launch of the kernels
-    whose names hold it. A window that records nothing is run again, up to
-    three times; then this raises."""
+    whose names hold it, and each decode wrapper's launches (``decode``;
+    a CUDA-graph replay's kernels are in the trace, though no wrapper counts
+    them). A window that records nothing is run again, up to three times;
+    then this raises."""
     from fpn_mt_image_captioning_torch.utils.profiling import cuda_kernel_times
 
     for _ in range(3):
@@ -926,7 +945,9 @@ def profile_run(torch, fn, means=()) -> dict:
     rows = sorted(((k, us / 1e3, c) for k, us, c in rows), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     out = dict(wall_ms=wall_ms, device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
-               top=[{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:12]])
+               top=[{"kernel": k[:90], "ms": ms, "count": c} for k, ms, c in rows[:12]],
+               decode={w: sum(c for k, _, c in rows if pat.search(k))
+                       for w, pat in DECODE_KERNELS.items()})
     for part in means:
         ms = sum(r[1] for r in rows if part in r[0])
         n = sum(r[2] for r in rows if part in r[0])
@@ -944,25 +965,26 @@ def phase_main(fd, torch, dev, pipe):
     reset_all_counts()
     for batch in (8, 64):
         images = rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)
-        start = fd.decoder_logsoftmax_topk.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.predict_batch(images)                  # warm-up
         torch.cuda.synchronize()
         warmup_s = time.perf_counter() - t0
         walls, encodes = [], []
+        start = decode_steps()
         for _ in range(5):
             t0 = time.perf_counter()
             seqs, lengths = pipe.predict_batch(images)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        n_steps = (fd.decoder_logsoftmax_topk.launches - start) // 6
+        n_steps = (decode_steps() - start) // 5
         for _ in range(5):
             t0 = time.perf_counter()
             pipe.encode(images)
             torch.cuda.synchronize()
             encodes.append(time.perf_counter() - t0)
         trace = profile_run(torch, lambda: pipe.predict_batch(images), means=ATTENTION_KERNELS)
+        check_trace_decode_counts(fd, trace, n_steps)
         captions = [pipe.to_caption(seqs[i], lengths[i]) for i in range(batch)]
         if seqs.shape != (batch, MAX_LEN) or seqs.dtype != np.int32:
             raise SmokeFailure(f"batch {batch}: sequences {seqs.shape} {seqs.dtype}")
@@ -999,10 +1021,49 @@ def decode_per_step(fd) -> dict:
 
 
 def check_decode_counts(fd, per_step, steps) -> None:
+    """Each decode kernel's launches since the counters' reset at ``steps``
+    × its launches a step (the steps the wrappers issued, eagerly or into a
+    graph's capture), and decode work done: launches, or steps that
+    replayed a CUDA graph, whose kernels no wrapper counts."""
+    replays = replayed_steps()
     for k, n in per_step.items():
-        if k.launches == 0 or k.launches != steps * n:
+        if k.launches != steps * n or not (k.launches or replays):
             raise SmokeFailure(f"{k.__name__}: {k.launches} launches for {steps} steps "
-                               f"× {n} per step")
+                               f"× {n} per step, {replays} steps replayed")
+
+
+def check_trace_decode_counts(fd, trace: dict, steps: int) -> None:
+    """The traced call's decode kernels in the profiler's trace: each at
+    ``steps`` (the call's decode steps, from its spans) × its launches a
+    step, so the trace holds every kernel a replayed graph ran."""
+    got = trace["decode"]
+    want = {k.__name__: steps * n for k, n in decode_per_step(fd).items()}
+    if not steps or got != want:
+        raise SmokeFailure(f"traced decode launches {got}, expected {want} ({steps} steps)")
+
+
+def decode_steps() -> int:
+    """The decode steps beam searches have run in this process, on either
+    route (their ``beam.kernels`` spans; none under the profiler)."""
+    from fpn_mt_image_captioning_torch.utils.profiling import REGISTRY
+
+    return REGISTRY.summary("beam.kernels").get("steps", 0)
+
+
+_REPLAYS_AT_RESET = [0]
+
+
+def replay_spans() -> int:
+    from fpn_mt_image_captioning_torch.utils.profiling import REGISTRY
+
+    return REGISTRY.summary("beam.replay").get("steps", 0)
+
+
+def replayed_steps() -> int:
+    """The decode steps that replayed a CUDA graph since the counters' last
+    reset (``beam.replay`` spans; all of them if the spans were reset since)."""
+    now = replay_spans()
+    return now - _REPLAYS_AT_RESET[0] if now >= _REPLAYS_AT_RESET[0] else now
 
 
 def all_kernels():
@@ -1017,6 +1078,7 @@ def reset_all_counts() -> None:
     fused_decoder.reset_launch_counts()
     fused_backbone.reset_launch_counts()
     probes.reset_launch_counts()
+    _REPLAYS_AT_RESET[0] = replay_spans()
 
 
 def read_all_counts() -> dict:
@@ -1385,7 +1447,7 @@ def phase_fused_main(fd, fb, torch, pipe, eager, eager_out):
     pipe.predict_batch(images)                      # warm-up
     torch.cuda.synchronize()
     warmup_s, encodes = time.perf_counter() - t0, encodes + 1
-    start = fd.decoder_logsoftmax_topk.launches
+    start = decode_steps()
     walls, encs = [], []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -1393,7 +1455,7 @@ def phase_fused_main(fd, fb, torch, pipe, eager, eager_out):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         encodes += 1
-    n_steps = (fd.decoder_logsoftmax_topk.launches - start) // 5
+    n_steps = (decode_steps() - start) // 5
     for _ in range(5):
         t0 = time.perf_counter()
         pipe.encode(images)
@@ -1405,6 +1467,7 @@ def phase_fused_main(fd, fb, torch, pipe, eager, eager_out):
     encodes += len(traced)
     counts = read_all_counts()
     check_decode_counts(fd, decode_per_step(fd), fd.decoder_logsoftmax_topk.launches)
+    check_trace_decode_counts(fd, trace, n_steps)
     if counts["fused_ir_block"] == 0 or counts["fused_ir_block"] != N_BLOCKS * encodes:
         raise SmokeFailure(f"fused_ir_block: {counts['fused_ir_block']} launches for "
                            f"{encodes} encodes × {N_BLOCKS}")
@@ -1736,10 +1799,11 @@ def phase_evaluate(fd, dev, Config, Pipeline, tokenizer, variables, workdir):
     batches = -(-EVAL_IMAGES // cfg.decode_batch)
     pipe.evaluate(split())                            # warm-up
     reset_all_counts()
+    start = decode_steps()
     results, wall, predict_s = evaluate_timed(pipe, split())
     counts = read_all_counts()
-    steps = fd.decoder_logsoftmax_topk.launches
-    check_decode_counts(fd, decode_per_step(fd), steps)
+    steps = decode_steps() - start
+    check_decode_counts(fd, decode_per_step(fd), fd.decoder_logsoftmax_topk.launches)
     if counts["fused_ir_block"] != 0 or not 0 < steps <= batches * MAX_LEN:
         raise SmokeFailure(f"evaluate: {steps} decode steps, {counts['fused_ir_block']} "
                            "backbone launches")
@@ -2831,7 +2895,8 @@ def check_graph(fd, meta: dict, fname: str) -> None:
 def phase_artifact_turns(torch, fd, served, pipe, rng) -> dict:
     """``ExportedServing.predict_batch`` against ``Pipeline.predict_batch`` at
     16 and 64 images in turns (pipeline, artifact, artifact, pipeline, five
-    times; medians), with the decode steps of each call."""
+    times; medians), with the decode steps of each call (the pipeline's
+    from its spans, as it replays graphs; the artifact's from the counters)."""
     import numpy as np
 
     out = {}
@@ -2840,17 +2905,17 @@ def phase_artifact_turns(torch, fd, served, pipe, rng) -> dict:
         served.predict_batch(images)
         pipe.predict_batch(images)
         turns, steps = {"pipeline": [], "artifact": []}, {"pipeline": [], "artifact": []}
+        ran = {"pipeline": decode_steps, "artifact": lambda: fd.decoder_logsoftmax_topk.launches}
         for _ in range(5):
             for name, p in (("pipeline", pipe), ("artifact", served), ("artifact", served),
                             ("pipeline", pipe)):
-                start = fd.decoder_logsoftmax_topk.launches
+                start = ran[name]()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 p.predict_batch(images)
                 torch.cuda.synchronize()
                 turns[name].append(time.perf_counter() - t0)
-                steps[name].append((fd.decoder_logsoftmax_topk.launches - start)
-                                   // -(-n // ART_BATCH))
+                steps[name].append((ran[name]() - start) // -(-n // ART_BATCH))
         out[n] = {"pipeline_s": statistics.median(turns["pipeline"]),
                   "artifact_s": statistics.median(turns["artifact"]), "runs": turns,
                   "steps_per_chunk": {k: sorted(set(v)) for k, v in steps.items()}}

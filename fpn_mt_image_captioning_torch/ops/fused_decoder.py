@@ -150,18 +150,25 @@ def pack_decoder_weights(model, dtype: torch.dtype = torch.bfloat16) -> dict:
 
 
 @no_grad
-def init_fused_cache(packed: dict, enc_output: torch.Tensor, beam: int, max_len: int) -> dict:
+def init_fused_cache(packed: dict, enc_output: torch.Tensor, beam: int, max_len: int,
+                     out: dict | None = None) -> dict:
     """Zero self caches (N, Lpad, B·beam, d) with Lpad = round_up(max_len+1, 8),
     and the cross K/V of every layer projected once per batch item,
     (N, Lenc, B, 2d). ``enc_output`` is un-tiled (B, Lenc, d); an empty one
     (Lenc = 0, what a 64² input encodes to) raises ValueError, as the
-    JAX package's ``fused_decode_step`` does over it."""
+    JAX package's ``fused_decode_step`` does over it. ``out``: a cache of
+    these shapes to fill in place and return (buffers held across calls)."""
     _check_lenc(enc_output.shape[1])
     n, d, _ = packed["wqkv"].shape
     dtype = packed["wqkv"].dtype
     lpad = round_up(max_len + 1, 8)
     kv_cross = torch.einsum("bld,nde->nlbe", enc_output.to(dtype), packed["wkv_x"])
     kv_cross = (kv_cross + packed["bkv_x"][:, None, None, :]).to(dtype).contiguous()
+    if out is not None:
+        out["kv_cross"].copy_(kv_cross)
+        out["k_self"].zero_()
+        out["v_self"].zero_()
+        return out
     bk = enc_output.shape[0] * beam
     zeros = functools.partial(torch.zeros, (n, lpad, bk, d), dtype=dtype, device=enc_output.device)
     return {"k_self": zeros(), "v_self": zeros(), "kv_cross": kv_cross}

@@ -292,6 +292,8 @@ class Pipeline:
                 model.encoder.feature_extractor.backbone, self.dtype), self.device)
         self.transformer = cast_for_inference(model.eval(), self.dtype).to(self.device)
         self.packed = pack_decoder_weights(self.transformer, self.dtype)
+        # the sharded searches hold the old packed weights, and with them their graphs
+        self.__dict__.pop("_sharded_beam_cache", None)
 
     @property
     def _sharded(self) -> bool:

@@ -33,9 +33,11 @@ The spans of the port, by layer (each nested in the one above it):
 ``pipeline.init`` (``Pipeline.__init__``); ``predict.call`` (a call of
 ``Pipeline.predict_batch``, with CPU time) over ``predict.upload`` (the
 images to the device), ``predict.encode``, one ``beam.step`` a step of the
-beam search (the stop test ``beam.sync``, then ``beam.issue``: the
-expansion, whose decode step is ``beam.kernels``, and the loop's
-bookkeeping) and ``predict.to_host``; ``train.step`` (a call of
+beam search (the stop test ``beam.sync`` where one is due, then
+``beam.issue``: the expansion, whose decode step is ``beam.kernels``, and
+the loop's bookkeeping; on the CUDA-graph route ``beam.kernels`` is the
+step's replay, ``beam.replay``, and each graph captured is a
+``beam.capture``) and ``predict.to_host``; ``train.step`` (a call of
 ``Pipeline.train_step``, with CPU time) over ``train.issue``
 (``train.upload``, ``train.forward``, ``train.backward``, ``train.clip``,
 whose wait for the gradients' scales is ``train.clip.wait``, and
