@@ -9,6 +9,14 @@ counterpart. Some of them steer parts of the JAX package that the port has not
 reached yet (mesh, remat, export, profiling); they are kept
 so a ``Config`` built for either package is accepted by both.
 
+One field is the port's alone, and the JAX package has no counterpart:
+``language_model``, the published ``text_config`` of a language model that
+takes the transformer decoder's place (Kimi-VL-A3B's, ``models/kimi_vl.py``:
+its keys verbatim, ``models.kimi_vl.TEXT_CONFIG_KEYS``). Set, the captioner
+is the FPN-MT encoder, Kimi-VL's projector and that language model, served
+in ``compute_dtype`` on the card; it captions and samples, and does not
+train.
+
 Unlike the reference, nothing here is global mutable state: construct a ``Config``
 (optionally overriding fields), pass it down. ``Config.from_flags`` provides CLI
 overrides (``--key=value``) for the entry-point scripts.
@@ -156,6 +164,12 @@ class Config:
     profile_dir: str = ""                   # capture a jax.profiler device trace of
                                             # early train steps into this TensorBoard
                                             # logdir (SURVEY §5.1); empty = off
+    # ---- the port's alone (no JAX counterpart) ----
+    language_model: dict | None = dataclasses.field(default=None, hash=False)
+                                            # a language model's published
+                                            # text_config, which replaces the
+                                            # decoder (models/kimi_vl.py);
+                                            # None = the transformer decoder
 
     # ------------------------------------------------------------------
     @property

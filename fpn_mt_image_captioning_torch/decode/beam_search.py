@@ -30,7 +30,11 @@ Two scoring modes:
   ``<end>``s stay in the result.
 
 Every top-k here is a stable descending sort, so ties go to the lowest
-index (``torch.topk`` promises no tie order).
+index (``torch.topk`` promises no tie order). Over a vocabulary wider than
+``WIDE_VOCAB`` (a language model's, 163 840 ids) fast mode's flat sort of
+(B, beam · V) candidates would cost more than the decode step; each row's
+best ``2 · beam`` come first there (``_top_wide``), with the same result
+but where more than ``beam`` of a live row's logits tie.
 
 ``sample_decode`` draws tokens with temperature / top-k / nucleus
 truncation on the non-fused step; ``sample_tokens`` is its token choice as
@@ -86,12 +90,41 @@ NEG_INF = -1.0e9
 STOP_EVERY = 8        # the graph route's steps between two stop tests
 GRAPH_SHAPES = 4      # batch shapes one packed weight set remembers, seen or captured
 GRAPHS_KEY = "step_graphs"   # where the packed weights hold their StepGraphs
+WIDE_VOCAB = 32768    # above it, fast mode's expansion takes each row's best first
 
 
 def _top(flat: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top ``k`` of each row, descending, ties to the lowest index."""
     order = torch.sort(flat, dim=1, descending=True, stable=True).indices[:, :k]
     return flat.gather(1, order), order
+
+
+def _top_wide(logits: torch.Tensor, scores: torch.Tensor, finished: torch.Tensor, k: int):
+    """Fast mode's expansion over a wide vocabulary: what the flat stable top
+    ``k`` of each item's (beam × V) candidates gives (``_CachedBeams.step``),
+    in two stages. Each row keeps its best ``2k`` logits (a row gives the
+    item at most ``k``), ordered by value then id, and so scored as
+    ``logit − logsumexp``; a finished row keeps pad at +0 and ids 1, 2, …
+    at −1e9, as the frozen row orders them. The stable top ``k`` of these
+    (B, beam · 2k) candidates, beam-major, then breaks ties toward the
+    lowest flat index, as the flat sort does. The two agree unless more than
+    ``k`` of a live row's logits tie with its ``k``-th largest. Returns
+    (scores (B, k), parent beams, tokens)."""
+    b, beams = scores.shape
+    m = min(2 * k, logits.shape[-1])
+    lse = torch.logsumexp(logits.float(), -1)
+    val, ids = torch.topk(logits, m, dim=-1)
+    ids, by_id = ids.sort(-1)
+    val, by_val = val.gather(-1, by_id).float().sort(dim=-1, descending=True, stable=True)
+    ids = ids.gather(-1, by_val)
+    # no element set from the host (``pad[0] = 0.0`` waits for the card)
+    first = torch.arange(m, device=logits.device)
+    pad = torch.where(first == 0, 0.0, NEG_INF)
+    done = finished.reshape(-1, 1)
+    lp = torch.where(done, pad, val - lse[:, None])
+    ids = torch.where(done, first, ids)
+    new_scores, order = _top((scores.reshape(-1, 1) + lp).reshape(b, beams * m), k)
+    return new_scores, order // m, ids.reshape(b, beams * m).gather(1, order)
 
 
 def _nucleus_keep(probs: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
@@ -249,7 +282,11 @@ class _CachedBeams:
         dev, b = enc_output.device, enc_output.shape[0]
         bk = b * beam_n
         self.model, self.beam, self.end, self.parity = model, beam_n, end_token, parity
-        self.cache = model.init_cache(enc_output.repeat_interleave(beam_n, dim=0), max_len + 1)
+        # a model whose cache holds a prefix once an item (models/kimi_vl.py)
+        # takes the items and the beam; else the rows come beam-major
+        init = getattr(model, "init_beam_cache", None)
+        self.cache = (init(enc_output, beam_n, max_len + 1) if init is not None else
+                      model.init_cache(enc_output.repeat_interleave(beam_n, dim=0), max_len + 1))
         self.own_rows = torch.arange(bk, device=dev)
         self.src = self.own_rows[:, None].repeat(1, max_len + 1)      # (BK, max_len + 1)
         self.group_base = torch.arange(b, device=dev)[:, None] * beam_n
@@ -275,20 +312,21 @@ class _CachedBeams:
         b, k, dev = self.scores.shape[0], self.beam, self.scores.device
         with span("beam.kernels"):
             logits, _ = self.model.decode_step(self.tokens, t, self.cache, self.src)
-        log_probs = torch.log_softmax(logits.float(), dim=-1)
-        vocab = log_probs.shape[-1]
-        log_probs = log_probs.reshape(b, k, vocab)
-        if not self.parity:
-            # freeze finished beams: only pad (id 0) continues, at zero added score
-            pad_row = torch.full((vocab,), NEG_INF, device=dev)
-            pad_row[0] = 0.0
-            log_probs = torch.where(self.finished[..., None], pad_row, log_probs)
-        total = self.scores[..., None] + log_probs
-        new_scores, flat_idx = _top(total.reshape(b, k * vocab), k)
-        beam_idx = flat_idx // vocab
+        vocab = logits.shape[-1]
+        if vocab > WIDE_VOCAB and not self.parity:
+            new_scores, beam_idx, new_tokens = _top_wide(logits, self.scores, self.finished, k)
+        else:
+            log_probs = torch.log_softmax(logits.float(), dim=-1).reshape(b, k, vocab)
+            if not self.parity:
+                # freeze finished beams: only pad (id 0) continues, at zero added score
+                pad_row = torch.full((vocab,), NEG_INF, device=dev)
+                pad_row[0] = 0.0
+                log_probs = torch.where(self.finished[..., None], pad_row, log_probs)
+            total = self.scores[..., None] + log_probs
+            new_scores, flat_idx = _top(total.reshape(b, k * vocab), k)
+            beam_idx, new_tokens = flat_idx // vocab, flat_idx % vocab
         self.src = self.src[(self.group_base + beam_idx).reshape(-1)]
         self.src[:, t + 1] = self.own_rows
-        new_tokens = flat_idx % vocab
         self.seqs = _extend(self.seqs, beam_idx, new_tokens, t)
         if self.parity:
             self.finished = new_tokens == self.end

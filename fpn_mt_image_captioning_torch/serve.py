@@ -26,8 +26,10 @@ Endpoints:
                        spans: a device batch, from its call to its host
                        arrays), ``queue_wait_ms`` (``serve.queue_wait``: a
                        request, from its arrival until the batcher takes its
-                       batch), and ``spans``, each ``predict.*`` and
-                       ``beam.*`` span of the caption path
+                       batch), and ``spans``, each ``predict.*``,
+                       ``beam.*`` and ``lm.*`` span of the caption path and,
+                       where the decoder is a language model, its ``moe.*``
+                       counters (``tallies``, ``total``, ``mean``)
   POST /stats/reset    zero the counters and those spans (a batch in flight
                        across the reset does not count into the new window)
 
@@ -71,8 +73,8 @@ from .data.dataset import load_image
 from .train.pipeline import Pipeline
 from .utils.profiling import REGISTRY, annotate
 
-# the caption path's spans, which /stats shows under ``spans``
-CAPTION_SPANS = ("predict.", "beam.")
+# the caption path's spans and counters, which /stats shows under ``spans``
+CAPTION_SPANS = ("predict.", "beam.", "lm.", "moe.")
 
 __all__ = ["QueueFull", "DynamicBatcher", "CaptionServer", "decode_image_bytes",
            "make_server", "server_from_argv", "main"]
@@ -120,7 +122,8 @@ class DynamicBatcher:
 
     def reset_stats(self) -> None:
         """Zero the counters and the spans that ``/stats`` shows (POST
-        /stats/reset): ``serve.*``, ``predict.*`` and ``beam.*``; the
+        /stats/reset): ``serve.*``, ``predict.*``, ``beam.*``, ``lm.*`` and
+        ``moe.*``; the
         process' other spans are kept. The sampling seed's sequence goes on:
         a replayed seed would replay captions."""
         with self._lock:

@@ -53,6 +53,18 @@ are cast once; LayerNorm, BatchNorm, softmax and beam scores stay float32.
 ``save_weights`` writes the served weights, so it needs a float32 pipeline,
 or the float32 master weights of a training pipeline.
 
+With ``Config.language_model`` (a published ``text_config``, the port's
+alone) the decoder is that language model (``models/kimi_vl.py``:
+Kimi-VL-A3B's mixture of experts and latent attention, fed by the FPN-MT
+encoder through Kimi-VL's projector). The pipeline builds it on the device
+and holds it once, in ``compute_dtype``; its weights come as a state dict
+(``variables``, tensors on any device) or from a seeded init drawn on the
+device. No fused decoder is packed: ``predict_batch`` runs the non-fused
+step (``decode.beam_search._CachedBeams``), whose cache prefills the visual
+prefix once an image, and ``sample_batch`` samples on it. Training such a
+model, and the weight files of the transformer, are refused
+(``NotImplementedError``).
+
 The pipeline runs on ``device`` — by default the CUDA card; without one it
 raises unless the caller asks for ``device="cpu"`` (which runs the plain
 PyTorch versions of the kernels).
@@ -75,6 +87,7 @@ from ..data.dataset import load_max_seq_len
 from ..data.metrics import MetricEval
 from ..data.tokenizer import Tokenizer, load_tokenizer_from_path
 from ..decode.beam_search import beam_search, cast_for_inference, sample_decode
+from ..models.kimi_vl import CaptionLM, init_language_model_
 from ..models.layers import BatchNorm32, Dropout
 from ..models.positional import create_masks
 from ..models.transformer import Transformer
@@ -95,6 +108,14 @@ from .schedule import (KerasAdamState, clip_by_per_variable_norm_, custom_schedu
                        keras_adam_, keras_adam_init)
 
 __all__ = ["Pipeline", "TrainState", "build_train_step_fn", "resolve_device"]
+
+
+# why a language model's pipeline does not train or read the transformer's files
+NO_LM_TRAINING = (
+    "a pipeline with Config.language_model captions only: training its language model "
+    "(Kimi-VL-A3B's 16 B parameters take 16 bytes each with float32 master weights, "
+    "gradients and Adam's moments, some 255 GB) does not fit one card and is out of scope, "
+    "and the transformer's weight files do not hold it")
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -220,6 +241,11 @@ class Pipeline:
             self.end_token = self.tokenizer.word_index["<end>"]
             self.dtype = getattr(torch, cfg.compute_dtype)
             self.state: TrainState | None = None
+            if cfg.language_model is not None:
+                if checkpoint_path is not None:
+                    raise NotImplementedError(NO_LM_TRAINING)
+                self._use(self._initial_model(variables, seed))
+                return
             if checkpoint_path is None:
                 model = self._initial_model(variables, seed)
                 if variables is None and cfg.retinanet_weight_path:
@@ -256,13 +282,50 @@ class Pipeline:
 
     def _initial_model(self, variables: Mapping | None, seed: int | None) -> Transformer:
         """The float32 model on the CPU with ``variables`` (a tree that does
-        not fit it raises) or the seeded init."""
+        not fit it raises) or the seeded init; a language model's captioner
+        on the device, with ``variables`` its state dict."""
+        if self.config.language_model is not None:
+            return self._initial_lm(variables, seed)
         model = self._new_model()
         if variables is not None:
             model.load_state_dict(from_flax(variables), strict=True)
         else:
             seed = self.config.seed if seed is None else seed
             init_weights(model, torch.Generator().manual_seed(seed))
+        return model
+
+    def _initial_lm(self, variables: Mapping | None, seed: int | None) -> CaptionLM:
+        """The language model's captioner on the device: ``variables`` (a
+        state dict that does not fit it raises) taken as they are, no copy
+        where they lie on the device already; or the seeded init, the
+        encoder's as the transformer's (on the CPU, then moved) and the
+        projector's and language model's drawn on the device."""
+        cfg = self.config
+        if self.target_vocab_size > cfg.language_model["vocab_size"]:
+            raise ValueError(f"the tokenizer's {self.target_vocab_size} ids exceed the "
+                             f"language model's vocabulary of {cfg.language_model['vocab_size']}")
+        with torch.device("meta"):
+            model = CaptionLM(
+                cfg.language_model, start_token=self.start_token, num_layers=cfg.num_layers,
+                d_model=cfg.d_model, num_heads=cfg.num_heads, dff=cfg.dff,
+                input_vocab_size=cfg.input_vocab_size, num_pyramids=cfg.num_of_pyramids,
+                baseline_index=cfg.baseline_index, backbone_name=cfg.backbone,
+                n_conv_submodule=cfg.n_conv_submodule, activation=cfg.activation,
+                compute_dtype=self.dtype)
+        if variables is not None:
+            if "params" in variables:   # a weight file's tree: the transformer's
+                raise NotImplementedError(NO_LM_TRAINING)
+            model.load_state_dict({k: torch.as_tensor(v, device=self.device)
+                                   for k, v in variables.items()}, strict=True, assign=True)
+            return model
+        seed = cfg.seed if seed is None else seed
+        encoder = model.encoder.to_empty(device="cpu")
+        with torch.no_grad():
+            init_weights(encoder, torch.Generator().manual_seed(seed))
+        model.encoder = encoder.to(self.device)
+        for i, part in enumerate((model.language_model, model.multi_modal_projector)):
+            init_language_model_(part.to_empty(device=self.device),
+                                 torch.Generator(device=self.device).manual_seed(seed + i))
         return model
 
     def _new_model(self) -> Transformer:
@@ -287,6 +350,11 @@ class Pipeline:
         # the cast below (the JAX package folds float32 parameters too)
         cfg = self.config
         self.backbone_packed = None
+        if cfg.language_model is not None:
+            cast_for_inference(model.encoder.eval(), self.dtype)
+            self.transformer = model.cast_language_model_(self.dtype).eval()
+            self.packed = None
+            return
         if cfg.use_pallas and cfg.fused_backbone and supports_fused_backbone(cfg.backbone):
             self.backbone_packed = packed_to(pack_backbone_weights(
                 model.encoder.feature_extractor.backbone, self.dtype), self.device)
@@ -348,6 +416,7 @@ class Pipeline:
         ``Pipeline.save_weights``, or this class's): serve them, and in a
         training pipeline make them the master weights (the optimizer state
         and step stay)."""
+        self._refuse_language_model()
         variables = read_flax_msgpack(path)
         if self.state is None:
             self._use(self._initial_model(variables, None))
@@ -376,6 +445,7 @@ class Pipeline:
         weights; an inference one into the weights it serves, which are then
         cast, moved and packed again. Returns the import report; a missing
         file raises ``OSError``."""
+        self._refuse_language_model()
         if self.state is not None:
             model = self._whole_master()
             report = self._import_retinanet(model, h5_path)
@@ -394,6 +464,7 @@ class Pipeline:
         than float32 and keeps no master serves weights rounded from the
         float32 ones it was given, so it raises. Over several ranks every
         rank calls this (the shards are gathered) and the primary writes."""
+        self._refuse_language_model()
         if self.state is None and self.dtype != torch.float32:
             raise ValueError(
                 f"save_weights: this pipeline serves {self.config.compute_dtype} weights "
@@ -455,6 +526,7 @@ class Pipeline:
         Over a mesh the batch is this rank's rows (zero-padded to its data
         share), every rank steps together, and the loss is the global
         batch's."""
+        self._refuse_language_model()
         with annotate("train.step", cpu=True):
             with annotate("train.issue"):
                 img, caption_token = np.asarray(img), np.asarray(caption_token, np.int64)
@@ -627,6 +699,10 @@ class Pipeline:
                 return seqs, lengths
             return self._predict_chunk(images, beam_n)
 
+    def _refuse_language_model(self) -> None:
+        if self.config.language_model is not None:
+            raise NotImplementedError(NO_LM_TRAINING)
+
     def _refuse_ranks_without_mesh(self, what: str) -> None:
         if world_size() > 1 and self.mesh is None:
             raise NotImplementedError(
@@ -642,9 +718,9 @@ class Pipeline:
         # the fused decode step (the hand-written kernels on the card; their
         # plain versions on the CPU) freezes finished beams, which parity mode
         # must not; an activation the kernels do not implement takes the
-        # non-fused step too
+        # non-fused step too, and so does a language model in the decoder's place
         fused = (cfg.use_pallas and not cfg.beam_parity_mode
-                 and cfg.activation in FUSED_ACTIVATIONS)
+                 and cfg.activation in FUSED_ACTIVATIONS and cfg.language_model is None)
         enc = self.encode(images)
         if self.mesh is not None and fused:
             seqs, lengths, _scores = self._sharded_beam_search(beam_n)(enc)
@@ -725,6 +801,7 @@ class Pipeline:
         teacher-forcing ``<start>`` + the caption (cut to ``max_seq_len``)
         back through the decoder. Returns (token sequence, {name: float32
         numpy array}). One process only, as in the JAX package."""
+        self._refuse_language_model()
         if world_size() > 1:
             raise NotImplementedError("predict_with_attention runs in one process "
                                       "(show_results on one rank)")

@@ -1,10 +1,13 @@
 """Profiling and timing (port of ``fpn_mt_image_captioning_tpu/utils/profiling.py``):
 
-  * ``annotate(name, cpu=False, wait=False)`` — a named span, the port's
-    only one. With
+  * ``annotate(name, cpu=False, wait=False, device=None)`` — a named span,
+    the port's only one. With
     no profiler running it reads the host clock at its enter and exit and
     counts the span into ``REGISTRY``: no ``record_function``, no NVTX, no
-    device call, no synchronisation. Under an active ``torch.profiler``
+    synchronisation; with ``device`` a CUDA device, it also records a CUDA
+    event on that device's stream at each end, whose elapsed time the
+    registry reads when the span is reported (the card's time of the work
+    issued inside it). Under an active ``torch.profiler``
     (``torch.autograd._profiler_enabled()``) it is a ``record_function``
     range instead: a ``user_annotation`` event on the trace's clock, and an
     NVTX range under ``emit_nvtx``; nothing enters the registry then (the
@@ -15,9 +18,13 @@
     the latest durations; ``summary(name)`` gives ``steps``, ``mean_ms``,
     ``p50_ms``, ``p90_ms``, ``p99_ms`` and ``self_ms``, ``cpu_ms`` for spans
     that take the thread's CPU time, and ``wait_ms`` and ``host_p50_ms``
-    for spans in which the host waited for the card. The server's
-    ``/stats`` and the benchmark's per-layer readers (``gpubench/
-    metrics/``) read it;
+    for spans in which the host waited for the card, and ``device_p50_ms``
+    for spans timed on the card too. It also keeps counters that live on
+    the card (``tally``: a tensor added into a table on its device, with no
+    synchronisation), read only when reported: ``summary(name)`` of a
+    counter gives ``tallies``, ``total`` and ``mean`` (per tally and
+    entry). The server's ``/stats`` and the benchmark's per-layer readers
+    (``gpubench/metrics/``) read it;
   * ``trace(logdir)`` — a ``torch.profiler`` trace (CPU and, on the card,
     CUDA activities) of the block it wraps, written into ``logdir`` by
     ``tensorboard_trace_handler`` (``*.pt.trace.json``, a Chrome trace that
@@ -45,7 +52,13 @@ whose wait for the gradients' scales is ``train.clip.wait``, and
 server's ``serve.batch`` (a device batch, with CPU time) and
 ``serve.queue_wait`` (a request, from its arrival until its batch is
 taken); inside the encoder and the decoder, ``model.pe_upload`` (a
-positional-encoding table copied to the card). The waits for the card:
+positional-encoding table copied to the card); in a captioner whose decoder
+is a language model (``models/kimi_vl.py``), ``lm.prefill`` (the visual
+prefix and ``<start>`` run once an image, timed on the card too) inside
+the beam search's set-up, and the counters ``moe.rows`` (the rows each
+routed expert computed, a table of layers × experts, tallied once a
+mixture-of-experts layer of a decode step) and ``moe.prefill_rows`` (the
+same in the prefill). The waits for the card:
 ``beam.sync``, ``predict.to_host``, ``train.clip.wait``,
 ``train.readback`` and ``model.pe_upload`` (a copy from host memory waits
 for the work queued before it).
@@ -83,6 +96,15 @@ class _Stat:
         self.host = collections.deque(maxlen=ring)   # durations less their waits
 
 
+class _Counter:
+    __slots__ = ("table", "tallies", "per_tally")
+
+    def __init__(self, table: torch.Tensor, per_tally: int):
+        self.table = table          # (slots, *shape) on the device of the first tally
+        self.tallies = 0
+        self.per_tally = per_tally  # the entries one tally adds
+
+
 class SpanRegistry:
     """The spans of a process, kept in memory; safe to use from any thread.
 
@@ -97,6 +119,9 @@ class SpanRegistry:
         self._lock = threading.Lock()
         self._stats: dict[str, _Stat] = {}
         self._resets: dict[str, int] = {}   # name prefix -> its last reset
+        self._events: dict[str, collections.deque] = {}   # name -> CUDA event pairs not yet read
+        self._device: dict[str, collections.deque] = {}   # name -> device ms read
+        self._counters: dict[str, _Counter] = {}
 
     def add(self, name: str, start_ns: int, end_ns: int, self_ns: int | None = None,
             cpu_ns: int | None = None, wait_ns: int = 0) -> None:
@@ -110,9 +135,7 @@ class SpanRegistry:
         try:
             st = self._stats.get(name)
             if st is None:
-                since = max((t for p, t in self._resets.items() if name.startswith(p)),
-                            default=0)
-                st = self._stats[name] = _Stat(since, self.ring)
+                st = self._stats[name] = _Stat(self._since(name), self.ring)
             if start_ns >= st.since:
                 st.count += 1
                 st.total_ns += dur
@@ -124,6 +147,31 @@ class SpanRegistry:
                     st.cpu_ns = (st.cpu_ns or 0) + cpu_ns
         finally:
             lock.release()
+
+    def add_device(self, name: str, start_ns: int, start, end) -> None:
+        """The CUDA events ``start`` and ``end`` of a span of ``name`` that
+        began at ``start_ns``, read (waited for) when the span is reported."""
+        with self._lock:
+            if start_ns >= self._since(name):
+                self._events.setdefault(name, collections.deque(maxlen=self.ring)).append(
+                    (start, end))
+
+    def tally(self, name: str, values: torch.Tensor, index: int = 0, slots: int = 1) -> None:
+        """Add ``values`` into row ``index`` of the counter ``name``, a table
+        of ``slots`` rows kept on ``values``' device: one in-place add, no
+        synchronisation. Nothing is counted while ``torch.export`` traces."""
+        if _exporting():
+            return
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None or c.table.shape[1:] != values.shape:
+                c = self._counters[name] = _Counter(values.new_zeros((slots, *values.shape)),
+                                                    values.numel())
+            c.table[index] += values
+            c.tallies += 1
+
+    def _since(self, name: str) -> int:
+        return max((t for p, t in self._resets.items() if name.startswith(p)), default=0)
 
     def record(self, name: str, start_ns: int, end_ns: int) -> None:
         """A span timed outside a ``with`` block (on ``time.perf_counter_ns``),
@@ -145,26 +193,59 @@ class SpanRegistry:
             for name in self._stats:
                 if name.startswith(prefixes):
                     self._stats[name] = _Stat(now, self.ring)
+            for table in (self._events, self._device, self._counters):
+                for name in [n for n in table if n.startswith(prefixes)]:
+                    del table[name]
 
     def names(self) -> list[str]:
-        """The names with spans since their last reset."""
+        """The names with spans or tallies since their last reset."""
         with self._lock:
-            return sorted(name for name, st in self._stats.items() if st.count)
+            return sorted([name for name, st in self._stats.items() if st.count]
+                          + [name for name, c in self._counters.items() if c.tallies])
+
+    def _device_ms(self, name: str) -> list[float]:
+        """The card's durations of ``name``'s spans, its events read first
+        (this waits for the last of them)."""
+        with self._lock:
+            events = self._events.pop(name, ())
+            ring = self._device.setdefault(name, collections.deque(maxlen=self.ring))
+        done = []
+        for start, end in events:
+            end.synchronize()
+            done.append(start.elapsed_time(end))
+        with self._lock:
+            ring.extend(done)
+            return list(ring)
+
+    def _counter(self, name: str) -> dict:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None or not c.tallies:
+                return {}
+            table, tallies, per_tally = c.table, c.tallies, c.per_tally
+        total = float(table.sum())   # the one read of the card's table
+        return {"tallies": tallies, "total": total, "mean": total / tallies / per_tally}
 
     def summary(self, name: str) -> dict:
         """``{}`` before the first span of ``name``; else ``steps`` (the count
         since the last reset), ``mean_ms`` and ``self_ms`` (the means since
         then), ``p50_ms``/``p90_ms``/``p99_ms`` (over the latest ``ring``
-        spans), ``cpu_ms`` (the mean thread CPU time) where it is taken, and
+        spans), ``cpu_ms`` (the mean thread CPU time) where it is taken,
         where the host waited for the card in such spans, ``wait_ms`` (the
-        mean wait) and ``host_p50_ms`` (the median duration less its wait)."""
+        mean wait) and ``host_p50_ms`` (the median duration less its wait),
+        and for spans timed on the card, ``device_p50_ms`` (the median of
+        the latest ``ring``). Of a counter: ``tallies``, ``total`` (the sum
+        of its table) and ``mean`` (``total`` per tally and entry)."""
         with self._lock:
             st = self._stats.get(name)
-            if st is None or not st.count:
-                return {}
-            count, total, self_ns, wait_ns, cpu_ns, ring, host = (
-                st.count, st.total_ns, st.self_ns, st.wait_ns, st.cpu_ns, list(st.ring),
-                list(st.host))
+            if st is not None and st.count:
+                count, total, self_ns, wait_ns, cpu_ns, ring, host = (
+                    st.count, st.total_ns, st.self_ns, st.wait_ns, st.cpu_ns, list(st.ring),
+                    list(st.host))
+            else:
+                st = None
+        if st is None:
+            return self._counter(name)
         p50, p90, p99 = np.percentile(np.asarray(ring, np.float64), (50, 90, 99)) / 1e6
         out = {"mean_ms": total / count / 1e6, "p50_ms": float(p50), "p90_ms": float(p90),
                "p99_ms": float(p99), "steps": count, "self_ms": self_ns / count / 1e6}
@@ -173,6 +254,9 @@ class SpanRegistry:
         if wait_ns:
             out["wait_ms"] = wait_ns / count / 1e6
             out["host_p50_ms"] = float(np.median(np.asarray(host, np.float64))) / 1e6
+        device = self._device_ms(name) if name in self._events or name in self._device else []
+        if device:
+            out["device_p50_ms"] = float(np.median(np.asarray(device, np.float64)))
         return out
 
 
@@ -183,20 +267,24 @@ class annotate:
     """A named span over a ``with`` block (see the module's docstring).
 
     ``cpu=True`` also takes the thread's CPU time (the call-level spans: a
-    ``predict_batch``, a ``train_step``, a server batch). ``wait=True``
+    ``predict_batch``, a ``train_step``, a server batch). ``device``, a CUDA
+    device, also times the span on that device's current stream (CUDA
+    events, read when the span is reported; ignored elsewhere). ``wait=True``
     marks a span in which the host waits for the card (a synchronisation):
     its time is wait time of every span around it on the same thread. A
     span's self time is its duration less the part its child spans of the
     same thread cover. A span that an exception ends is not counted (a
     failed call's time is no call's time)."""
 
-    __slots__ = ("name", "cpu", "wait", "start_ns", "child_ns", "wait_ns", "cpu_ns", "_range",
-                 "_stack")
+    __slots__ = ("name", "cpu", "wait", "device", "start_ns", "child_ns", "wait_ns", "cpu_ns",
+                 "_range", "_stack", "_start")
 
-    def __init__(self, name: str, cpu: bool = False, wait: bool = False):
+    def __init__(self, name: str, cpu: bool = False, wait: bool = False,
+                 device: torch.device | None = None):
         self.name = name
         self.cpu = cpu
         self.wait = wait
+        self.device = device if device is not None and device.type == "cuda" else None
 
     def __enter__(self) -> "annotate":
         if _exporting():
@@ -214,6 +302,10 @@ class annotate:
             if self.cpu:
                 self.cpu_ns = _cpu_clock()
             stack.append(self)
+            self._start = None
+            if self.device is not None:
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record(torch.cuda.current_stream(self.device))
             self.start_ns = _clock()
         return self
 
@@ -232,6 +324,10 @@ class annotate:
             # left out too: a span inside which a profiler started
             if exc_type is None and not _profiling():
                 REGISTRY.add(self.name, self.start_ns, end, dur - self.child_ns, cpu, wait)
+                if self._start is not None:
+                    stop = torch.cuda.Event(enable_timing=True)
+                    stop.record(torch.cuda.current_stream(self.device))
+                    REGISTRY.add_device(self.name, self.start_ns, self._start, stop)
         elif self._range:
             self._range.__exit__(exc_type, exc, tb)
 
